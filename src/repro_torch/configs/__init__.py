@@ -1,0 +1,12 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    get_config,
+    list_configs,
+    register,
+)
+
+# Import arch modules for registration side effects.
+from repro_torch.configs import (  # noqa: F401
+    gemma_2b,
+    deepseek_7b,
+)

@@ -1,0 +1,330 @@
+"""Attention: GQA/MQA/MHA, causal + bidirectional + sliding-window.
+
+Port of ``repro.models.attention`` (cross-attention and the mesh-only
+``_shard_aligned_attention`` are later work).  The plain computation is
+q-chunked so it never holds a full (Sq x Skv) score tensor for long
+prompts; full prefill with contiguous positions goes through the
+hand-written flash kernel instead (``kernels/ops.py``), which computes the
+same function.
+
+KV caches carry an explicit per-slot ``pos`` array (-1 = empty), so full
+caches, ring buffers (SWA) and page pools are uniform: masks always come
+from true token positions.  Caches are updated in place (eager PyTorch has
+no donation; the in-place write is what donation bought in JAX), and every
+write that JAX would drop as out of bounds is made explicit here: a masked
+write for dense caches, a trash page for page pools.
+
+Score precision: the JAX einsums take compute-dtype inputs with
+``preferred_element_type=float32``; here the operands are upcast before the
+product, softmax runs in f32, and the probabilities are cast back to v's
+dtype for the PV product, as ``attention.py:145, 168`` do.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import apply_rope, dense_init, torch_dtype
+from repro_torch.utils import Spec
+
+NEG_INF = -0.7 * torch.finfo(torch.float32).max
+
+
+# ---------------------------------------------------------------------------
+# Context threading through the model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ModelCtx:
+    mode: str  # train | prefill | chunk_prefill | decode
+    positions: torch.Tensor  # (B, S) int32
+    cache_pos: torch.Tensor | None = None  # (B,) int32 write position (decode)
+    causal: bool = True
+    #: (B, max_pages) int32 block table for paged KV pools (decode only);
+    #: entries == n_pages mark unallocated logical pages.
+    table: torch.Tensor | None = None
+    #: positions are the ``arange`` that ``LanguageModel._positions`` built
+    #: (pos_q = pos_k = 0..S-1 in every row), the case the flash kernel takes
+    contiguous: bool = False
+
+
+# ---------------------------------------------------------------------------
+# Streaming attention core
+# ---------------------------------------------------------------------------
+
+
+def _pick_chunk(sq: int) -> int:
+    if sq <= 1024:
+        return sq
+    c = max(128, min(1024, sq // 32))
+    while sq % c:
+        c //= 2
+    return max(c, 1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _mask(pq: torch.Tensor, pk: torch.Tensor, causal: bool,
+          window: int) -> torch.Tensor:
+    """pq: (B, ..., Sq, 1) and pk: (B, ..., 1, Skv) positions -> valid mask."""
+    mask = pk >= 0
+    if causal:
+        mask = mask & (pk <= pq)
+    if window > 0:
+        mask = mask & ((pq - pk) < window)
+    return mask
+
+
+def attention_core(
+    q: torch.Tensor,  # (B, Sq, Hq, Dk)
+    k: torch.Tensor,  # (B, Skv, Hkv, Dk)
+    v: torch.Tensor,  # (B, Skv, Hkv, Dv)
+    pos_q: torch.Tensor,  # (B, Sq) int
+    pos_k: torch.Tensor,  # (B, Skv) int, -1 marks empty slots
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    B, Sq, Hq, Dk = q.shape
+    Hkv = k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else Dk ** -0.5
+
+    if Sq > 1:
+        # GQA: expand K/V to the q-head count (head h reads kv head h // G)
+        if G > 1:
+            k = k.repeat_interleave(G, dim=2)
+            v = v.repeat_interleave(G, dim=2)
+        return _attention_expanded(q, k, v, pos_q, pos_k, causal=causal,
+                                   window=window, scale=scale)
+
+    # decode (Sq == 1): grouped product against the cache -- no repeat, so
+    # cache reads stay 1/G of the expanded cost
+    qg = q.reshape(B, Sq, Hkv, G, Dk)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    mask = _mask(pos_q[:, None, None, :, None], pos_k[:, None, None, None, :],
+                 causal, window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, Hq, Dv)
+
+
+def _attention_expanded(q, k, v, pos_q, pos_k, *, causal, window, scale):
+    """Plain q-chunked attention with per-head K/V (no grouping)."""
+    B, Sq, Hq, Dk = q.shape
+    Skv = k.shape[1]
+    kf = k.float()
+
+    def block(q_blk, pq, k_, v_, pk):
+        s = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), k_) * scale
+        mask = _mask(pq[:, None, :, None], pk[:, None, None, :], causal,
+                     window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(v_.dtype), v_)
+
+    chunk = _pick_chunk(Sq)
+    if Sq == chunk:
+        return block(q, pos_q, kf, v, pos_k)
+
+    # Banded path for sliding-window prefill: slice the KV band per q-chunk
+    # so the work is O(S * window).  Valid because prefill cache slots are
+    # position-ordered (pos_k == arange over the computed sequence).
+    banded = window > 0 and Skv > window + chunk
+    band = min(_round_up(window + chunk, 128), Skv)
+    outs = []
+    for start in range(0, Sq, chunk):
+        sl = slice(start, start + chunk)
+        if banded:
+            # lax.dynamic_slice clamps the start so the band fits
+            lo = min(max(start + chunk - band, 0), Skv - band)
+            kb = slice(lo, lo + band)
+            outs.append(block(q[:, sl], pos_q[:, sl], kf[:, kb], v[:, kb],
+                              pos_k[:, kb]))
+        else:
+            outs.append(block(q[:, sl], pos_q[:, sl], kf, v, pos_k))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Cache plumbing (full + ring buffers, explicit slot positions)
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_specs(batch: int, size: int, n_kv: int, dk: int, dv: int,
+                   dtype) -> dict:
+    ax = ("batch", None, "kv_heads", None)
+    return {
+        "k": Spec((batch, size, n_kv, dk), dtype, ax),
+        "v": Spec((batch, size, n_kv, dv), dtype, ax),
+        "pos": Spec((batch, size), torch.int32, ("batch", None)),
+    }
+
+
+def prefill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                  pos: torch.Tensor) -> dict:
+    """Write a full prefix into a (possibly ring) cache, in place.  For ring
+    caches only the last ``size`` tokens are written (unique slots)."""
+    size = cache["k"].shape[1]
+    S = k.shape[1]
+    if S <= size:
+        k_w, v_w, p_w = k, v, pos
+    else:
+        k_w, v_w, p_w = k[:, -size:], v[:, -size:], pos[:, -size:]
+    slots = (p_w % size).long()  # floor-mod: padded rows carry pos < 0
+    b_idx = torch.arange(k.shape[0], device=k.device)[:, None]
+    cache["k"][b_idx, slots] = k_w.to(cache["k"].dtype)
+    cache["v"][b_idx, slots] = v_w.to(cache["v"].dtype)
+    cache["pos"][b_idx, slots] = p_w.to(cache["pos"].dtype)
+    return cache
+
+
+def append_cache(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor,
+                 pos: torch.Tensor) -> dict:
+    """Append one token (decode), in place. k_t: (B, 1, H, D); pos: (B,).
+
+    pos < 0 marks an inactive slot (e.g. mid-chunk-prefill in the paged
+    engine); JAX sends its write out of bounds, where it is dropped.  Here
+    the row rewrites what its slot 0 already holds: each batch row writes
+    only its own row, so no two writes collide."""
+    size = cache["k"].shape[1]
+    B = k_t.shape[0]
+    valid = pos >= 0
+    slots = torch.where(valid, pos % size, 0).long()
+    b_idx = torch.arange(B, device=k_t.device)
+    for name, new in (("k", k_t[:, 0]), ("v", v_t[:, 0]), ("pos", pos)):
+        leaf = cache[name]
+        cur = leaf[b_idx, slots]
+        keep = valid.view((B,) + (1,) * (cur.ndim - 1))
+        leaf[b_idx, slots] = torch.where(keep, new.to(leaf.dtype), cur)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pools (block-table indirection, shared across decode slots)
+# ---------------------------------------------------------------------------
+
+
+def paged_kv_cache_specs(n_pages: int, page_size: int, n_kv: int, dk: int,
+                         dv: int, dtype) -> dict:
+    """Specs for a page *pool*: no batch dim -- physical pages are allocated
+    to slots through a block table (see launch/paged_kv.py).
+
+    The pool holds ``n_pages + 1`` pages.  The last one is a write-only trash
+    page: every scatter that JAX drops as out of bounds (a dead slot's
+    decode write, an unallocated table entry == n_pages) lands there
+    instead, and every gather reads entries >= n_pages as the fill value, so
+    nothing ever reads it."""
+    ax = ("pages", None, "kv_heads", None)
+    rows = n_pages + 1
+    return {
+        "k": Spec((rows, page_size, n_kv, dk), dtype, ax),
+        "v": Spec((rows, page_size, n_kv, dv), dtype, ax),
+        "pos": Spec((rows, page_size), torch.int32, ("pages", None)),
+    }
+
+
+def paged_append(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor,
+                 pos: torch.Tensor, table: torch.Tensor) -> dict:
+    """Append one token per slot into the page pool (decode), in place.
+
+    k_t: (B, 1, H, D); pos: (B,) absolute positions; table: (B, P).
+    Slots with pos < 0 (inactive), positions past the slot's capacity and
+    unallocated logical pages all write the trash page, so a dead slot can
+    never corrupt pages that have been recycled to another request."""
+    n_pages = cache["pos"].shape[0] - 1
+    ps = cache["pos"].shape[1]
+    P = table.shape[1]
+    valid = (pos >= 0) & (pos < P * ps)
+    lpage = (pos // ps).clamp(0, P - 1).long()
+    page = table.gather(1, lpage[:, None])[:, 0]
+    page = torch.where(valid, page, n_pages).long()
+    off = (pos % ps).long()
+    cache["k"][page, off] = k_t[:, 0].to(cache["k"].dtype)
+    cache["v"][page, off] = v_t[:, 0].to(cache["v"].dtype)
+    cache["pos"][page, off] = pos.to(cache["pos"].dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Standard (GQA) attention layer
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator | None, cfg: ModelConfig, *,
+                   stack: int = 0, device: torch.device | str = "cuda") -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.param_dtype
+    kw = dict(stack=stack, device=device)
+    return {
+        "w_q": dense_init(gen, (d, h, hd), 1, dt, **kw),
+        "w_k": dense_init(gen, (d, hkv, hd), 1, dt, **kw),
+        "w_v": dense_init(gen, (d, hkv, hd), 1, dt, **kw),
+        "w_o": dense_init(gen, (h, hd, d), 2, dt, **kw),
+    }
+
+
+def apply_attention(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, d)
+    ctx: ModelCtx,
+    cache: dict | None,
+    *,
+    window: int = 0,
+    paged: bool = False,
+) -> tuple[torch.Tensor, dict | None]:
+    cdt = torch_dtype(cfg.compute_dtype)
+    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(cdt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(cdt))
+    if cfg.pos_type in ("rope", "mrope"):
+        q = apply_rope(q, ctx.positions, cfg)
+        k = apply_rope(k, ctx.positions, cfg)
+    pos_q = ctx.positions
+    new_cache = None
+    if cache is None:  # train: attend within the computed seq
+        o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
+                           window=window)
+    elif ctx.mode == "decode" and paged:
+        # page-pool cache: scatter the new token through the block table,
+        # then attend over the slot's gathered pages
+        new_cache = paged_append(cache, k, v, ctx.cache_pos, ctx.table)
+        o = kops.paged_attention(
+            q, new_cache["k"].to(cdt), new_cache["v"].to(cdt),
+            new_cache["pos"], ctx.table, pos_q, causal=ctx.causal,
+            window=window)
+    elif ctx.mode == "decode":
+        new_cache = append_cache(cache, k, v, ctx.cache_pos)
+        o = attention_core(q, new_cache["k"].to(cdt), new_cache["v"].to(cdt),
+                           pos_q, new_cache["pos"], causal=ctx.causal,
+                           window=window)
+    elif ctx.mode == "chunk_prefill":
+        # continue a prefix already in the cache: attend over (cache
+        # contents + this chunk), then persist the chunk
+        k_att = torch.cat([cache["k"].to(cdt), k], dim=1)
+        v_att = torch.cat([cache["v"].to(cdt), v], dim=1)
+        pos_k = torch.cat([cache["pos"], pos_q.to(cache["pos"].dtype)], dim=1)
+        new_cache = prefill_cache(cache, k, v, pos_q)
+        o = attention_core(q, k_att, v_att, pos_q, pos_k, causal=ctx.causal,
+                           window=window)
+    else:  # prefill: attend over the computed seq, persist into the cache
+        new_cache = prefill_cache(cache, k, v, pos_q)
+        if ctx.contiguous:
+            o = kops.flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=ctx.causal,
+                                     window=window)
+        else:
+            o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
+                               window=window)
+    out = torch.einsum("bshk,hkd->bsd", o, p["w_o"].to(cdt))
+    return out, new_cache

@@ -1,0 +1,153 @@
+"""Shared layers: initializers, norms, rotary embeddings, MLPs.
+
+Port of ``repro.models.layers``.  Weights keep the JAX layouts (``(d, ff)``
+MLP matrices, ``(d,)`` norm scales); activations are ``(..., d)``.  Every
+function that takes weights casts them to ``cfg.compute_dtype`` at use, as
+JAX does; a weight already held in that dtype (see
+``LanguageModel.cast_for_compute``) passes through without a copy.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``param_dtype`` / ``compute_dtype``."""
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (explicit generators; the numbers differ from jax.random's,
+# parity tests carry weights across with ``repro_torch.bridge`` instead)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape: tuple[int, ...], in_dims: int,
+               dtype: str, *, stack: int = 0,
+               device: torch.device | str = "cuda") -> torch.Tensor:
+    """Truncated-normal fan-in init (LeCun-style).  ``stack > 0`` draws a
+    leading layers axis of that many independent copies (scanned segments);
+    the fan-in is the per-layer one."""
+    fan_in = max(1, math.prod(shape[:in_dims]))
+    full = ((stack,) if stack else ()) + tuple(shape)
+    w = torch.empty(full, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(torch_dtype(dtype))
+
+
+def embed_init(gen: torch.Generator, shape: tuple[int, ...], dtype: str, *,
+               device: torch.device | str = "cuda") -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    w.normal_(0.0, 0.02, generator=gen)
+    return w.to(torch_dtype(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, d: int, *, stack: int = 0,
+              device: torch.device | str = "cuda") -> dict:
+    shape = ((stack,) if stack else ()) + (d,)
+    dt = torch_dtype(cfg.param_dtype)
+    p = {"scale": (torch.zeros(shape, dtype=dt, device=device) if cfg.gemma_norm
+                   else torch.ones(shape, dtype=dt, device=device))}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=dt, device=device)
+    return p
+
+
+def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    if cfg.norm_type == "layernorm":
+        mean = x.mean(-1, keepdim=True)
+        var = x.var(-1, keepdim=True, unbiased=False)
+        x_hat = (x - mean) * torch.rsqrt(var + cfg.norm_eps)
+        out = x_hat * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = x.square().mean(-1, keepdim=True)
+        x_hat = x * torch.rsqrt(ms + cfg.norm_eps)
+        scale = p["scale"].float()
+        if cfg.gemma_norm:
+            scale = 1.0 + scale
+        out = x_hat * scale
+    return out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (split-half / NeoX convention)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(cfg: ModelConfig, rot_dim: int,
+               device: torch.device | str) -> torch.Tensor:
+    """Inverse frequencies for the rotated sub-dimension (rot_dim/2 pairs)."""
+    exponent = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                            device=device) / rot_dim
+    return 1.0 / (cfg.rope_theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+               rot_dim: int | None = None) -> torch.Tensor:
+    """x: (batch, seq, heads, head_dim); positions: (batch, seq) int."""
+    if cfg.pos_type == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet")
+    head_dim = x.shape[-1]
+    rot = rot_dim if rot_dim is not None else int(head_dim * cfg.rope_fraction)
+    rot = min(rot, head_dim)
+    inv_freq = rope_freqs(cfg, rot, x.device)
+    angle = positions.float()[..., None] * inv_freq  # (b, s, rot/2)
+    sin = torch.sin(angle)[..., None, :]  # (b, s, 1, rot/2)
+    cos = torch.cos(angle)[..., None, :]
+    x1 = x[..., : rot // 2].float()
+    x2 = x[..., rot // 2: rot].float()
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    parts = [out1.to(x.dtype), out2.to(x.dtype)]
+    if rot < head_dim:
+        parts.append(x[..., rot:])
+    return torch.cat(parts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense / GLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, stack: int = 0,
+             device: torch.device | str = "cuda") -> dict:
+    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    p = {
+        "w_up": dense_init(gen, (d, ff), 1, dt, stack=stack, device=device),
+        "w_down": dense_init(gen, (ff, d), 1, dt, stack=stack, device=device),
+    }
+    if cfg.mlp_type == "glu":
+        p["w_gate"] = dense_init(gen, (d, ff), 1, dt, stack=stack,
+                                 device=device)
+    return p
+
+
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="tanh")  # jax.nn.gelu(approximate=True)
+    return F.silu(x)
+
+
+def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    cdt = torch_dtype(cfg.compute_dtype)
+    h = x @ p["w_up"].to(cdt)
+    if cfg.mlp_type == "glu":
+        g = x @ p["w_gate"].to(cdt)
+        h = _act(cfg, g) * h
+    else:
+        h = _act(cfg, h)
+    return h @ p["w_down"].to(cdt)

@@ -1,0 +1,169 @@
+"""LanguageModel: init / prefill / prefill_chunk / decode_step for the
+decoder-only attention architectures (port of ``repro.models.model``).
+
+Parameters are a nested dict of tensors keyed exactly as the JAX pytree
+(scanned segments keep their leading ``layers`` axis), so
+``repro_torch.bridge`` carries weights across leaf for leaf.  Caches are
+nested dicts too, updated in place: each serving call returns the cache it
+was given.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import ModelCtx
+from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
+                                       torch_dtype)
+from repro_torch.utils import Spec, tree_map
+
+
+class LanguageModel:
+    def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
+        if cfg.enc_dec or cfg.pos_type in ("learned", "mrope"):
+            raise NotImplementedError(
+                f"{cfg.name}: encoder-decoder, learned and M-RoPE positions "
+                "are not ported yet")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dec_kinds = tfm.layer_kinds(cfg)
+        self.dec_segments = tfm.plan_segments(cfg, self.dec_kinds)
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed: int = 0) -> dict:
+        """Weights on ``self.device`` from one seeded generator (the numbers
+        differ from ``jax.random``'s; tests bridge JAX weights instead)."""
+        gen = None
+        if self.device.type != "meta":
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        cfg, dev = self.cfg, self.device
+        params: dict[str, Any] = {
+            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                cfg.param_dtype, device=dev)}
+        if not cfg.tie_embeddings:
+            params["out"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       cfg.param_dtype, device=dev)
+        if cfg.embed_norm:
+            params["embed_ln"] = init_norm(cfg, cfg.d_model, device=dev)
+        for i, seg in enumerate(self.dec_segments):
+            params[f"seg{i}"] = tfm.init_segment(gen, cfg, seg, device=dev)
+        params["final_norm"] = init_norm(cfg, cfg.d_model, device=dev)
+        return params
+
+    def param_shapes(self) -> dict:
+        """Shape tree of ``init``'s output, computed on the meta device."""
+        meta = LanguageModel(self.cfg, device="meta")
+        return tree_map(lambda t: tuple(t.shape), meta.init())
+
+    def cast_for_compute(self, params: dict) -> dict:
+        """One compute-dtype copy of every >=2-D float weight, made once at
+        load time.  JAX casts each f32 weight at every use in serving
+        (``attention.py:401-469``, ``layers.py:174-180``); a weight already
+        in the compute dtype passes through those casts untouched, so this
+        gives the same numbers without re-reading the f32 masters (10 GB
+        for gemma-2b) on every step."""
+        cdt = torch_dtype(self.cfg.compute_dtype)
+
+        def cast(x):
+            if x.ndim >= 2 and x.is_floating_point():
+                return x.to(cdt)
+            return x
+
+        return tree_map(cast, params)
+
+    # ------------------------------------------------------------- embeddings
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+        if cfg.emb_scale:
+            x = x * math.sqrt(cfg.d_model)
+        if cfg.embed_norm:
+            x = apply_norm(params["embed_ln"], cfg, x)
+        return x
+
+    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = apply_norm(params["final_norm"], cfg, x)
+        w = params["embed"].T if cfg.tie_embeddings else params["out"]
+        return (x @ w.to(torch_dtype(cfg.compute_dtype))).float()
+
+    def _positions(self, batch_size: int, seq: int,
+                   given: torch.Tensor | None) -> torch.Tensor:
+        if given is not None:
+            return given
+        pos = torch.arange(seq, dtype=torch.int32, device=self.device)
+        return pos.expand(batch_size, seq)
+
+    def _backbone(self, params: dict, x: torch.Tensor, caches: Any,
+                  ctx: ModelCtx) -> tuple[torch.Tensor, Any]:
+        for i, seg in enumerate(self.dec_segments):
+            c = None if caches is None else caches[f"seg{i}"]
+            x, _ = tfm.apply_segment(params[f"seg{i}"], self.cfg, seg, x, c, ctx)
+        return x, caches
+
+    # ------------------------------------------------------------------ serve
+    def cache_specs(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                    pages: tuple[int, int] | None = None) -> dict:
+        """``pages=(n_pages, page_size)`` swaps full-attention KV caches for
+        shared page pools (no batch dim; see launch/paged_kv.py)."""
+        return {f"seg{i}": tfm.segment_cache_specs(self.cfg, seg, batch,
+                                                   max_len, dtype, pages=pages)
+                for i, seg in enumerate(self.dec_segments)}
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   pages: tuple[int, int] | None = None) -> dict:
+        def make(spec: Spec) -> torch.Tensor:
+            if spec.dtype == torch.int32:  # slot-position arrays start empty
+                return torch.full(spec.shape, -1, dtype=spec.dtype,
+                                  device=self.device)
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
+
+        return tree_map(make, self.cache_specs(batch, max_len, dtype,
+                                               pages=pages))
+
+    def prefill(self, params: dict, batch: dict,
+                cache: dict) -> tuple[torch.Tensor, dict]:
+        """batch["tokens"]: (B, S).  Without ``batch["positions"]`` the
+        positions are 0..S-1 and attention runs through the flash kernel."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        given = batch.get("positions")
+        pos = self._positions(B, S, given)
+        ctx = ModelCtx(mode="prefill", positions=pos, contiguous=given is None)
+        x = self._embed(params, tokens)
+        x, cache = self._backbone(params, x, cache, ctx)
+        return self._head(params, x[:, -1:])[:, 0], cache
+
+    def prefill_chunk(self, params: dict, batch: dict, cache: dict,
+                      start: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """Continue prefilling an existing cache with one chunk of tokens.
+
+        batch["tokens"]: (B, C); start: (B,) absolute position of the chunk's
+        first token.  Attends over (cache contents + chunk), so calling this
+        over an exact partition of the prompt equals one full ``prefill``.
+        Returns the last-position logits and the updated cache."""
+        tokens = batch["tokens"]
+        C = tokens.shape[1]
+        pos = (start[:, None].to(torch.int32)
+               + torch.arange(C, dtype=torch.int32, device=tokens.device))
+        ctx = ModelCtx(mode="chunk_prefill", positions=pos)
+        x = self._embed(params, tokens)
+        x, cache = self._backbone(params, x, cache, ctx)
+        return self._head(params, x[:, -1:])[:, 0], cache
+
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
+                    pos: torch.Tensor,
+                    table: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+        """tokens: (B, 1); pos: (B,) current positions (0-based, -1 =
+        inactive slot).  ``table`` is the (B, max_pages) block table when
+        ``cache`` holds paged pools."""
+        positions = pos[:, None].to(torch.int32)
+        ctx = ModelCtx(mode="decode", positions=positions, cache_pos=pos,
+                       table=table)
+        x = self._embed(params, tokens)
+        x, cache = self._backbone(params, x, cache, ctx)
+        return self._head(params, x)[:, 0], cache
