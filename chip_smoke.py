@@ -9,18 +9,27 @@ back to the CPU):
 1. env      -- card name and power limit (nvidia-smi), torch and CUDA versions;
 2. build    -- every CUDA kernel of the port, compiled from this checkout;
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the serving path's shapes and the head dims of the model zoo,
-               with its time, the plain version's, a PyTorch library call's
-               (a yardstick the port never calls) and the card's bound;
+               the serving paths' shapes (flash also at the head dims of the
+               model zoo), with its time, the plain version's, a PyTorch
+               library call's (a yardstick the port never calls) where one
+               exists, and the card's bound;
 4. serve    -- gemma-2b at full width (18 layers, d_model 2048, vocab 256000,
                random weights from seed 0, bf16 compute) serving 6 ragged
                prompts through ``ContinuousBatcher`` (full prefill: the flash
                kernel) and ``PagedServingEngine`` (chunked prefill + paged
-               decode); the kernel's launch count is read around the first;
+               decode); the launch counts are read around each engine;
 5. parity   -- the same weights in f32 compute: first-token logits of the
                dense path (flash kernel) against the paged path (plain
                attention), and greedy agreement of the two engines;
-6. the kernels JSON line, then the card line, then the result line.
+6. serve    -- rwkv6-1.6b at full width (24 layers, d_model 2048, 32 heads
+               of 64, vocab 65536, seed 0, bf16 compute), the same prompts
+               through both engines; the WKV scan kernel runs once per layer
+               per full prefill (24 x 6 = 144 in the dense engine) and per
+               chunk round (24 x rounds in the paged engine);
+7. parity   -- rwkv6 in f32 compute: full-prefill first-token logits (WKV
+               kernel) against token-by-token decode (the plain per-step
+               recurrence), and greedy agreement of the two engines;
+8. the kernels JSON line, then the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository.
@@ -28,7 +37,6 @@ repository.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -47,6 +55,11 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:45"
+WKV_SOURCE = "src/repro_torch/kernels/csrc/linear_scan.cu"
+WKV_REPLACES = "src/repro/kernels/linear_scan.py:36"
+# relative to max(1, max |plain|): the kernel steps token by token, the plain
+# version sums chunk-parallel through exp of decay differences
+WKV_TOL = 1e-4
 
 # (name, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset, out_scale,
 #  residual, dtype); the first is the serving path's (gemma-2b prefill)
@@ -66,6 +79,19 @@ KERNEL_CASES = [
     ("f32", 1, 512, 512, 8, 1, 256, 256, True, 0, 0, 1.0, False,
      torch.float32),
 ]
+# (name, B, S, H, N); the first is the serving path's (rwkv6-1.6b prefill),
+# then tests/test_kernels.py's WKV cases and its padded S = 100 case, a paged
+# chunk round (8 slots x 64 tokens) and an odd length
+WKV_CASES = [
+    ("rwkv6_prefill", 1, 1000, 32, 64),
+    ("chunk_round", 8, 64, 32, 64),
+    ("odd_97", 1, 97, 32, 64),
+    ("kernels_1", 1, 64, 2, 16),
+    ("kernels_2", 2, 128, 2, 32),
+    ("kernels_3", 1, 128, 4, 64),
+    ("kernels_4", 2, 96, 2, 16),
+    ("padded_100", 2, 100, 2, 32),
+]
 PROMPT_LENS = [97, 1000, 351, 742, 180, 563]
 MAX_NEW = 16
 PARITY_TOL = 1e-3  # f32 logits of magnitude ~1; only summation order differs
@@ -76,21 +102,46 @@ def log(*a) -> None:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times (inputs warm in L2, as a prefill
-    finds the q/k/v its projections just wrote)."""
+    """Mean device time per call of ``reps`` back-to-back calls between two
+    CUDA events (inputs warm in L2, as a prefill finds the q/k/v its
+    projections just wrote).  Back to back, the host's ~30 us per wrapper
+    call overlaps the previous call's device work; a call shorter than its
+    host overhead still shows the host's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    pairs = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        pairs.append((s, e))
+    e.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    return s.elapsed_time(e) / reps
+
+
+def device_ms(fn, reps: int = 5, tries: int = 3) -> float | None:
+    """Device time per call from a ``torch.profiler`` trace: the summed time
+    of every kernel (and memset) the call runs on the card, without the
+    host's launch overhead.  A trace now and then comes back without device
+    events; it is taken again, and after ``tries`` empty traces the time is
+    reported as not measured (None) -- a supplementary number, not a check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    log(f"[kernels] device_ms: {tries} profiler traces held no device "
+        f"time; not measured")
+    return None
 
 
 def phase_env() -> str:
@@ -164,6 +215,7 @@ def _library_call(case, q, k, v):
 
 
 def phase_kernels() -> list[dict]:
+    """The flash kernel's cases (KERNEL_CASES)."""
     from repro_torch.kernels import flash_attention as fa
 
     results = []
@@ -188,17 +240,79 @@ def phase_kernels() -> list[dict]:
             raise AssertionError(f"[kernels] {name}: kernel disagrees with its "
                                  f"plain version, max abs err {err}")
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                            reps=5)
         lib = _library_call(case, q, k, v)
         library_ms = cuda_ms(lib) if lib is not None else None
+        library_device_ms = device_ms(lib) if lib is not None else None
         bound_ms, bound_by = _bound(case, q, k, v, out, res)
         row = dict(case=name, shape=[B, Sq, Skv, Hq, Hkv, D, Dv],
                    dtype=str(dt).replace("torch.", ""), causal=causal,
                    window=window, q_offset=q_offset, max_abs_err=err,
-                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   tol=tol, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_device_ms=library_device_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
         log(f"[kernels] {json.dumps(row)}")
+        results.append(row)
+    return results
+
+
+def _wkv_inputs(B, S, H, N, seed):
+    """Realistic decays (tests/test_kernels.py::_wkv_inputs): log_w =
+    -exp(w_raw), w_raw in [-6, 0]; nonzero s0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    w_raw = torch.rand((B, S, H, N), generator=g, device="cuda") * 6.0 - 6.0
+    return (randn(B, S, H, N), randn(B, S, H, N), randn(B, S, H, N),
+            -torch.exp(w_raw), randn(H, N) * 0.1, randn(B, H, N, N) * 0.5)
+
+
+def _wkv_bound(args, y, s_fin) -> tuple[float, str]:
+    """Least time for one scan: each input read once and y, s_fin written
+    once, against the operations of the recurrence on the CUDA cores.  Per
+    (step, head): r.S 2N^2, the state update w*S + k v^T 3N^2, the u-bonus
+    and its rank-1 term 5N, one exp per n: 5N^2 + 6N, all f32."""
+    B, S, H, N = args[0].shape
+    flops = float(B * S * H) * (5 * N * N + 6 * N)
+    nbytes = sum(t.nbytes for t in args) + y.nbytes + s_fin.nbytes
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_wkv_kernel() -> list[dict]:
+    from repro_torch.kernels import linear_scan as ls
+
+    results = []
+    for name, B, S, H, N in WKV_CASES:
+        args = _wkv_inputs(B, S, H, N, seed=len(results))
+        y, s_fin = ls.linear_scan(*args)
+        torch.cuda.synchronize()
+        y_ref, s_ref = ls.linear_scan_plain(*args)
+        err = 0.0
+        for out, ref in ((y, y_ref), (s_fin, s_ref)):
+            e = float((out - ref).abs().max())
+            scale = max(1.0, float(ref.abs().max()))
+            if not bool(torch.isfinite(out).all()) or e > WKV_TOL * scale:
+                raise AssertionError(f"[kernels] wkv {name}: kernel disagrees "
+                                     f"with its plain version, max abs err "
+                                     f"{e} (scale {scale})")
+            err = max(err, e)
+        ms = cuda_ms(lambda: ls.linear_scan(*args))
+        dev_ms = device_ms(lambda: ls.linear_scan(*args))
+        plain_ms = cuda_ms(lambda: ls.linear_scan_plain(*args), reps=5)
+        bound_ms, bound_by = _wkv_bound(args, y, s_fin)
+        row = dict(case=name, shape=[B, S, H, N], dtype="float32",
+                   max_abs_err=err, max_abs_plain=float(y_ref.abs().max()),
+                   tol=f"{WKV_TOL} x max(1, max |plain|)", ms=ms,
+                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                   library_device_ms=None, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        log(f"[kernels] wkv {json.dumps(row)}")
         results.append(row)
     return results
 
@@ -208,86 +322,83 @@ def _prompts(vocab: int) -> list[list[int]]:
     return [rng.randint(0, vocab, n).tolist() for n in PROMPT_LENS]
 
 
-def phase_serve(model, params) -> int:
+def phase_serve(model, params, kernel, paged_launches) -> dict:
+    """Serve the prompts through both engines; ``kernel`` is the module of
+    the path's kernel wrapper, whose launch count is set to 0 just before
+    each engine runs and read just after.  The dense engine runs one full
+    prefill per prompt; ``paged_launches(stats)`` is the paged engine's
+    expected count."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.launch.serve import (ContinuousBatcher,
                                           PagedServingEngine, Request)
 
     cfg = model.cfg
     prompts = _prompts(cfg.vocab_size)
+    name = kernel.__name__.rsplit(".", 1)[-1]
 
     def reqs():
         return [Request(rid=i, prompt=list(p), max_new=MAX_NEW)
                 for i, p in enumerate(prompts)]
 
+    def reset():
+        fa.launches = ls.launches = 0
+
     dense_reqs = reqs()
     batcher = ContinuousBatcher(model, params, n_slots=4, max_len=1024)
-    fa.launches = 0
+    reset()
     stats = batcher.run(dense_reqs)
     torch.cuda.synchronize()
-    launches = fa.launches
-    log(f"[serve] dense: wall_s {stats['wall_s']:.3f} tok/s "
+    launches = {"dense": kernel.launches}
+    others = fa.launches + ls.launches - kernel.launches
+    log(f"[serve] {cfg.name} dense: wall_s {stats['wall_s']:.3f} tok/s "
         f"{stats['tok_per_s']:.2f} host_syncs {stats['host_syncs']} "
-        f"flash launches {launches}")
+        f"{name} launches {launches['dense']}")
     expect = cfg.n_layers * len(prompts)
     if not all(r.done and not r.rejected for r in dense_reqs):
         raise AssertionError("[serve] dense: a request did not finish")
     if stats["tokens"] != len(prompts) * MAX_NEW:
         raise AssertionError(f"[serve] dense: {stats['tokens']} tokens")
-    if launches != expect:
-        raise AssertionError(f"[serve] flash launches {launches} != {expect}")
+    if launches["dense"] != expect or others:
+        raise AssertionError(f"[serve] dense {name} launches "
+                             f"{launches['dense']} != {expect} (others {others})")
 
     paged_reqs = reqs()
     eng = PagedServingEngine(model, params, n_slots=8, max_len=1024,
                              page_size=16, chunk_max=64, drain_every=8)
+    reset()
     pstats = eng.run(paged_reqs)
-    log(f"[serve] paged: wall_s {pstats['wall_s']:.3f} tok/s "
+    torch.cuda.synchronize()
+    launches["paged"] = kernel.launches
+    others = fa.launches + ls.launches - kernel.launches
+    log(f"[serve] {cfg.name} paged: wall_s {pstats['wall_s']:.3f} tok/s "
         f"{pstats['tok_per_s']:.2f} host_syncs {pstats['host_syncs']} "
-        f"decode_ticks {pstats['decode_ticks']} prefill_chunks "
-        f"{pstats['prefill_chunks']}")
+        f"decode_ticks {pstats['decode_ticks']} prefill_rounds "
+        f"{pstats['prefill_rounds']} prefill_chunks {pstats['prefill_chunks']} "
+        f"{name} launches {launches['paged']}")
     if not all(r.done and not r.rejected and len(r.out) == MAX_NEW
                for r in paged_reqs):
         raise AssertionError("[serve] paged: a request did not finish")
     if eng.kv.stats().pages_in_use or any(eng.slot_req):
         raise AssertionError("[serve] paged: pages or slots not returned")
+    if launches["paged"] != paged_launches(pstats) or others:
+        raise AssertionError(f"[serve] paged {name} launches "
+                             f"{launches['paged']} != {paged_launches(pstats)} "
+                             f"(others {others})")
     for r in dense_reqs + paged_reqs:
         if not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"[serve] token out of vocab in {r.rid}")
     agree = sum(a == b for d, p in zip(dense_reqs, paged_reqs)
                 for a, b in zip(d.out, p.out))
-    log(f"[serve] bf16 greedy tokens equal across engines: {agree}/"
-        f"{len(prompts) * MAX_NEW} (flash keeps P in f32, the plain path "
-        f"rounds it to bf16, so bf16 streams may part)")
+    log(f"[serve] {cfg.name} bf16 greedy tokens equal across engines: "
+        f"{agree}/{len(prompts) * MAX_NEW} (the two engines round in bf16 at "
+        f"other places, so bf16 streams may part)")
     return launches
 
 
-def phase_parity(model32, params) -> None:
-    from repro_torch.launch.paged_kv import PagedKVCache, decompose
+def _engines_agree(model32, params, prompts) -> None:
     from repro_torch.launch.serve import (ContinuousBatcher,
                                           PagedServingEngine, Request)
-
-    prompts = _prompts(model32.cfg.vocab_size)[:2]
-    for i, p in enumerate(prompts):
-        tokens = torch.tensor([p], dtype=torch.int32, device="cuda")
-        cache = model32.init_cache(1, 1024, dtype=torch.float32)
-        dense, _ = model32.prefill(params, {"tokens": tokens}, cache)
-        kv = PagedKVCache(model32, n_slots=1, n_pages=64, page_size=16,
-                          max_pages=64, dtype=torch.float32)
-        kv.alloc(0, len(p) + 1)
-        start = 0
-        for c in decompose(len(p), 64):
-            view = kv.gather_slot(0)
-            paged, view = model32.prefill_chunk(
-                params, {"tokens": tokens[:, start:start + c]}, view,
-                torch.full((1,), start, dtype=torch.int32, device="cuda"))
-            kv.scatter_slot(0, view)
-            start += c
-        err = float((dense - paged).abs().max())
-        scale = float(dense.abs().max())
-        log(f"[parity] prompt {i} (len {len(p)}): max |dense - paged| logits "
-            f"{err:.3e} (max |logit| {scale:.3f}, tol {PARITY_TOL})")
-        if not bool(torch.isfinite(dense).all()) or err > PARITY_TOL:
-            raise AssertionError(f"[parity] prompt {i}: {err} > {PARITY_TOL}")
 
     d = [Request(rid=i, prompt=list(p), max_new=8) for i, p in enumerate(prompts)]
     q = [Request(rid=i, prompt=list(p), max_new=8) for i, p in enumerate(prompts)]
@@ -295,16 +406,114 @@ def phase_parity(model32, params) -> None:
     PagedServingEngine(model32, params, n_slots=2, max_len=1024, page_size=16,
                        chunk_max=64, drain_every=8, dtype=torch.float32).run(q)
     agree = sum(a == b for x, y in zip(d, q) for a, b in zip(x.out, y.out))
-    log(f"[parity] f32 greedy tokens equal across engines: {agree}/"
-        f"{sum(len(x.out) for x in d)}")
+    log(f"[parity] {model32.cfg.name} f32 greedy tokens equal across engines: "
+        f"{agree}/{sum(len(x.out) for x in d)}")
+
+
+def _prefill_both(model, params, prompt, dtype):
+    """First-token logits of one prompt through full ``prefill`` and through
+    ``prefill_chunk`` over a paged cache (the paged engine's prefill)."""
+    from repro_torch.launch.paged_kv import PagedKVCache, decompose
+
+    tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    cache = model.init_cache(1, 1024, dtype=dtype)
+    full, _ = model.prefill(params, {"tokens": tokens}, cache)
+    kv = PagedKVCache(model, n_slots=1, n_pages=64, page_size=16,
+                      max_pages=64, dtype=dtype)
+    kv.alloc(0, len(prompt) + 1)
+    start = 0
+    for c in decompose(len(prompt), 64):
+        view = kv.gather_slot(0)
+        chunked, view = model.prefill_chunk(
+            params, {"tokens": tokens[:, start:start + c]}, view,
+            torch.full((1,), start, dtype=torch.int32, device="cuda"))
+        kv.scatter_slot(0, view)
+        start += c
+    return full, chunked
+
+
+def phase_bf16_gap(model, params) -> None:
+    """Why bf16 greedy streams of the two engines may part: the gap between
+    full and chunked prefill's first-token logits against the top-2 margin
+    (a report, not a check)."""
+    for i, p in enumerate(_prompts(model.cfg.vocab_size)[:2]):
+        full, chunked = _prefill_both(model, params, p, torch.bfloat16)
+        top = full[0].float().topk(2).values
+        log(f"[serve] {model.cfg.name} bf16 prompt {i} (len {len(p)}): max "
+            f"|full - chunked| first-token logits "
+            f"{float((full - chunked).abs().max()):.3e}, top-2 margin "
+            f"{float(top[0] - top[1]):.3e}, argmax equal "
+            f"{bool(full.argmax() == chunked.argmax())}")
+
+
+def phase_parity(model32, params) -> None:
+    prompts = _prompts(model32.cfg.vocab_size)[:2]
+    for i, p in enumerate(prompts):
+        dense, paged = _prefill_both(model32, params, p, torch.float32)
+        err = float((dense - paged).abs().max())
+        scale = float(dense.abs().max())
+        log(f"[parity] prompt {i} (len {len(p)}): max |dense - paged| logits "
+            f"{err:.3e} (max |logit| {scale:.3f}, tol {PARITY_TOL})")
+        if not bool(torch.isfinite(dense).all()) or err > PARITY_TOL:
+            raise AssertionError(f"[parity] prompt {i}: {err} > {PARITY_TOL}")
+
+    _engines_agree(model32, params, prompts)
+
+
+def phase_parity_rwkv(model32, params) -> None:
+    """Full prefill (the WKV kernel) against the prompt fed token by token
+    through ``decode_step`` (the plain per-step recurrence, no kernel)."""
+    from repro_torch.kernels import linear_scan as ls
+
+    prompts = _prompts(model32.cfg.vocab_size)[:2]
+    for i, p in enumerate(prompts):
+        tokens = torch.tensor([p], dtype=torch.int32, device="cuda")
+        cache = model32.init_cache(1, 1024, dtype=torch.float32)
+        before = ls.launches
+        full, _ = model32.prefill(params, {"tokens": tokens}, cache)
+        if ls.launches - before != model32.cfg.n_layers:
+            raise AssertionError("[parity] rwkv6 prefill missed the kernel")
+        cache = model32.init_cache(1, 1024, dtype=torch.float32)
+        before = ls.launches
+        for t in range(len(p)):
+            step, cache = model32.decode_step(
+                params, tokens[:, t:t + 1], cache,
+                torch.full((1,), t, dtype=torch.int32, device="cuda"))
+        if ls.launches != before:
+            raise AssertionError("[parity] rwkv6 decode launched the kernel")
+        err = float((full - step).abs().max())
+        scale = float(full.abs().max())
+        log(f"[parity] rwkv6 prompt {i} (len {len(p)}): max |prefill - "
+            f"decode| logits {err:.3e} (max |logit| {scale:.3f}, tol "
+            f"{PARITY_TOL})")
+        if not bool(torch.isfinite(full).all()) or err > PARITY_TOL:
+            raise AssertionError(f"[parity] rwkv6 prompt {i}: {err} > "
+                                 f"{PARITY_TOL}")
+    _engines_agree(model32, params, prompts)
+
+
+def _kernel_entry(name, source, replaces, launches, rows, library):
+    head = rows[0]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_engine": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "library": library,
+            "shape": head["shape"], "cases": rows}
 
 
 def main() -> None:
     card = phase_env()
     phase_build()
-    kernel_rows = phase_kernels()
+    flash_rows = phase_kernels()
+    wkv_rows = phase_wkv_kernel()
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.models import LanguageModel
 
     cfg = get_config("gemma-2b")
@@ -314,21 +523,45 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"[serve] {cfg.name} full width: {cfg.param_count() / 1e9:.3f}B params, "
         f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s")
-    launches = phase_serve(model, model.cast_for_compute(params))
+    cast = model.cast_for_compute(params)
+    flash_launches = phase_serve(model, cast, fa, lambda stats: 0)
+    phase_bf16_gap(model, cast)
+    del cast
     torch.cuda.empty_cache()
     model32 = LanguageModel(cfg.scaled(compute_dtype="float32"), device="cuda")
     phase_parity(model32, params)
-    log(f"[mem] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[mem] {cfg.name} peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, model32, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
-    head = kernel_rows[0]
-    log(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "shape": head["shape"],
-        "cases": kernel_rows}]}))
+    cfg = get_config("rwkv6-1.6b")
+    model = LanguageModel(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name} full width: {cfg.param_count() / 1e9:.3f}B params, "
+        f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s")
+    cast = model.cast_for_compute(params)
+    wkv_launches = phase_serve(model, cast, ls,
+                               lambda stats: cfg.n_layers * stats["prefill_rounds"])
+    phase_bf16_gap(model, cast)
+    del cast
+    torch.cuda.empty_cache()
+    model32 = LanguageModel(cfg.scaled(compute_dtype="float32"), device="cuda")
+    phase_parity_rwkv(model32, params)
+    log(f"[mem] {cfg.name} peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    log(json.dumps({"kernels": [
+        _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
+                      flash_launches, flash_rows,
+                      "F.scaled_dot_product_attention"),
+        _kernel_entry("linear_scan", WKV_SOURCE, WKV_REPLACES, wkv_launches,
+                      wkv_rows, "none: no single PyTorch call computes the "
+                      "WKV scan"),
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

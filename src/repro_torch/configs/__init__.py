@@ -9,4 +9,5 @@ from repro_torch.configs.base import (  # noqa: F401
 from repro_torch.configs import (  # noqa: F401
     gemma_2b,
     deepseek_7b,
+    rwkv6_1_6b,
 )

@@ -1,15 +1,17 @@
-"""Dispatch for the port's attention kernels.
+"""Dispatch for the port's kernels.
 
 ``flash_attention`` is the hand-written Hopper kernel's wrapper
 (``kernels/flash_attention.py``) at its fixed 64 x 64 tiles; a shape-keyed
-tuner for it is later work.  ``paged_attention`` is a gather plus the plain
-``attention_core``, as in the JAX package -- not a kernel.
+tuner for it is later work.  ``linear_scan`` is the RWKV-6 WKV scan kernel's
+wrapper (``kernels/linear_scan.py``).  ``paged_attention`` is a gather plus
+the plain ``attention_core``, as in the JAX package -- not a kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.linear_scan import linear_scan  # noqa: F401
 from repro_torch.utils import take_fill
 
 

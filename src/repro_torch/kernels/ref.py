@@ -1,9 +1,13 @@
-"""Plain PyTorch oracle for the attention kernel (full materialization).
+"""Plain PyTorch oracles for the port's kernels (full materialization).
 
-Port of ``repro.kernels.ref.attention_ref``, widened to the kernel's whole
-interface: ``q_offset``, ``D != Dv`` and the fused ``out * out_scale +
-residual`` epilogue.  A query row with no unmasked key outputs 0 before the
-epilogue, as the kernel does.
+``attention_ref`` ports ``repro.kernels.ref.attention_ref``, widened to the
+flash kernel's whole interface: ``q_offset``, ``D != Dv`` and the fused
+``out * out_scale + residual`` epilogue.  A query row with no unmasked key
+outputs 0 before the epilogue, as the kernel does.
+
+``wkv_ref`` ports ``repro.kernels.ref.wkv_ref``, the per-step RWKV-6
+recurrence; the model's decode step runs it too
+(``models/recurrent.py::wkv_recurrent``).
 """
 from __future__ import annotations
 
@@ -40,3 +44,21 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if residual is not None:
         o = o + residual.float()
     return o.to(q.dtype)
+
+
+def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            log_w: torch.Tensor, u: torch.Tensor,
+            s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence oracle.  All (B,S,H,N) f32; u (H,N); s0 (B,H,N,N).
+
+    y_t = r_t . (S_{t-1} + (u*k_t) v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    """
+    state = s0
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, lwt = r[:, t], k[:, t], v[:, t], log_w[:, t]  # (B, H, N)
+        ys.append(torch.einsum("bhn,bhnm->bhm", rt, state)
+                  + torch.einsum("bhn,hn,bhn->bh", rt, u, kt)[..., None] * vt)
+        state = (torch.exp(lwt)[..., None] * state
+                 + kt[..., None] * vt[:, :, None, :])
+    return torch.stack(ys, 1), state

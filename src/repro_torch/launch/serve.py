@@ -15,7 +15,9 @@ interface:
 ``ContinuousBatcher`` (the dense reference)
     Lockstep batcher over dense ``(n_slots, max_len)`` caches with full,
     unchunked ``prefill`` at admission -- the path that runs the flash
-    kernel -- and one host read per tick.
+    kernel (attention) or the WKV scan kernel (RWKV-6) -- and one host read
+    per tick.  The paged engine's chunked prefill runs the WKV scan kernel
+    too, once per rwkv layer per prefill round.
 
 Both report ``host_syncs`` and device<->host byte counters in their stats.
 """
@@ -107,8 +109,8 @@ class PagedServingEngine:
 
         self.stats_counters = {
             "host_syncs": 0, "bytes_to_host": 0, "bytes_to_device": 0,
-            "drains": 0, "prefill_chunks": 0, "decode_ticks": 0,
-            "stall_ticks": 0,
+            "drains": 0, "prefill_rounds": 0, "prefill_chunks": 0,
+            "decode_ticks": 0, "stall_ticks": 0,
         }
         self._window_walls: list[tuple[float, int]] = []  # (wall_s, ticks)
 
@@ -210,6 +212,7 @@ class PagedServingEngine:
         self.stats_counters["bytes_to_device"] += int(tokens.nbytes)
         logits = self._chunk(slots, torch.from_numpy(tokens).to(self.device),
                              torch.from_numpy(starts).to(self.device))
+        self.stats_counters["prefill_rounds"] += 1
         self.stats_counters["prefill_chunks"] += len(members)
         for i, (slot, st) in enumerate(members):
             st.start += c

@@ -1,5 +1,6 @@
 """LanguageModel: init / prefill / prefill_chunk / decode_step for the
-decoder-only attention architectures (port of ``repro.models.model``).
+decoder-only attention and RWKV-6 architectures (port of
+``repro.models.model``).
 
 Parameters are a nested dict of tensors keyed exactly as the JAX pytree
 (scanned segments keep their leading ``layers`` axis), so
@@ -20,6 +21,11 @@ from repro_torch.models.attention import ModelCtx
 from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
                                        torch_dtype)
 from repro_torch.utils import Spec, tree_map
+
+#: matrices that JAX reads in f32 at every use, never in the compute dtype:
+#: RWKV-6's bonus ``u`` and decay projection ``decay_B``
+#: (``repro/models/recurrent.py:328, 336``)
+F32_AT_USE = frozenset({"u", "decay_B"})
 
 
 class LanguageModel:
@@ -60,20 +66,29 @@ class LanguageModel:
         return tree_map(lambda t: tuple(t.shape), meta.init())
 
     def cast_for_compute(self, params: dict) -> dict:
-        """One compute-dtype copy of every >=2-D float weight, made once at
-        load time.  JAX casts each f32 weight at every use in serving
-        (``attention.py:401-469``, ``layers.py:174-180``); a weight already
-        in the compute dtype passes through those casts untouched, so this
-        gives the same numbers without re-reading the f32 masters (10 GB
-        for gemma-2b) on every step."""
+        """One compute-dtype copy, made once at load time, of every weight
+        that JAX casts to the compute dtype at each use in serving
+        (``attention.py:401-469``, ``layers.py:174-180``): the matrices, i.e.
+        leaves of rank >= 2 per layer (the leading ``layers`` axis of a
+        scanned segment does not count), except ``F32_AT_USE``.  Vectors stay
+        as they are: JAX reads norm scales, ``w0`` and the group-norm
+        weights in f32, and casts the token-shift mixes at use, as the port
+        does.  Casting a weight once gives the bits that casting it at every
+        use gives, so no number changes, and the f32 masters (10 GB for
+        gemma-2b) are not re-read on every step."""
         cdt = torch_dtype(self.cfg.compute_dtype)
 
-        def cast(x):
-            if x.ndim >= 2 and x.is_floating_point():
-                return x.to(cdt)
-            return x
+        def walk(node: Any, name: str, lead: int) -> Any:
+            if isinstance(node, dict):
+                return {k: walk(v, k, lead) for k, v in node.items()}
+            if (node.is_floating_point() and node.ndim - lead >= 2
+                    and name not in F32_AT_USE):
+                return node.to(cdt)
+            return node
 
-        return tree_map(cast, params)
+        scanned = {f"seg{i}" for i, seg in enumerate(self.dec_segments)
+                   if seg.scanned}
+        return {k: walk(v, k, int(k in scanned)) for k, v in params.items()}
 
     # ------------------------------------------------------------- embeddings
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,231 @@
+"""RWKV-6 (Finch [arXiv:2404.05892]): time mix and channel mix.
+
+Port of the RWKV-6 half of ``repro.models.recurrent``; the RG-LRU half
+(recurrentgemma) is a later slice.  The WKV recurrence has three forms, as
+in JAX, and each mode takes the one JAX takes:
+
+* ``wkv_recurrent``, the per-step scan: decode;
+* ``wkv_chunked``, the chunked-parallel form (intra-chunk attention-like
+  products in log-decay space plus an inter-chunk state carry): train, and
+  the kernel's plain version on a CPU tensor;
+* the hand-written CUDA kernel behind ``kops.linear_scan``: prefill and
+  chunked prefill.
+
+Caches are updated in place, as everywhere in the port: the time mix writes
+the cache's ``S`` and ``x_tm`` with ``copy_`` after reading them, the channel
+mix writes ``x_cm``.  In decode, an ``active`` mask keeps an inactive slot's
+state bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import wkv_ref as wkv_recurrent
+from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.utils import Spec
+
+_N_MIX = 5  # w, k, v, r, g ddlerp streams
+
+
+def _heads(cfg: ModelConfig) -> tuple[int, int]:
+    return cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+
+
+def init_rwkv_time_mix(gen: torch.Generator | None, cfg: ModelConfig, *,
+                       stack: int = 0,
+                       device: torch.device | str = "cuda") -> dict:
+    d = cfg.d_model
+    h, n = _heads(cfg)
+    lm, ld = cfg.rwkv_mix_lora, cfg.rwkv_decay_lora
+    dt, tdt = cfg.param_dtype, torch_dtype(cfg.param_dtype)
+    lead = (stack,) if stack else ()
+    kw = dict(stack=stack, device=device)
+
+    def full(shape, value, dtype=tdt):
+        return torch.full(lead + shape, value, dtype=dtype, device=device)
+
+    # decay base: -6 .. -1 ramp => per-channel half-lives spanning decades
+    ramp = torch.linspace(0.0, 1.0, d, dtype=torch.float32, device=device)
+    w0 = (-6.0 + 5.0 * ramp ** 1.3).expand(lead + (d,)).clone()
+    u = torch.empty(lead + (h, n), dtype=torch.float32, device=device)
+    u.normal_(0.0, 0.1, generator=gen)
+    return {
+        "mu_x": full((d,), 0.5),
+        "mu": full((_N_MIX, d), 0.5),
+        "mix_A": dense_init(gen, (d, _N_MIX, lm), 1, dt, **kw),
+        "mix_B": dense_init(gen, (_N_MIX, lm, d), 2, dt, **kw),
+        "w0": w0,
+        "decay_A": dense_init(gen, (d, ld), 1, dt, **kw),
+        "decay_B": dense_init(gen, (ld, d), 1, dt, **kw),
+        "u": u.to(tdt),
+        "w_r": dense_init(gen, (d, d), 1, dt, **kw),
+        "w_k": dense_init(gen, (d, d), 1, dt, **kw),
+        "w_v": dense_init(gen, (d, d), 1, dt, **kw),
+        "w_g": dense_init(gen, (d, d), 1, dt, **kw),
+        "ln_w": full((d,), 1.0),
+        "ln_b": full((d,), 0.0),
+        "w_o": dense_init(gen, (d, d), 1, dt, **kw),
+    }
+
+
+def init_rwkv_channel_mix(gen: torch.Generator | None, cfg: ModelConfig, *,
+                          stack: int = 0,
+                          device: torch.device | str = "cuda") -> dict:
+    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    lead = (stack,) if stack else ()
+    kw = dict(stack=stack, device=device)
+    half = torch.full(lead + (d,), 0.5, dtype=torch_dtype(dt), device=device)
+    return {
+        "mu_k": half,
+        "mu_r": half.clone(),
+        "w_k": dense_init(gen, (d, ff), 1, dt, **kw),
+        "w_v": dense_init(gen, (ff, d), 1, dt, **kw),
+        "w_r": dense_init(gen, (d, d), 1, dt, **kw),
+    }
+
+
+def rwkv_state_specs(batch: int, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    h, n = _heads(cfg)
+    f32 = torch.float32
+    return {
+        "S": Spec((batch, h, n, n), f32, ("batch", "rwkv_heads", None, None)),
+        "x_tm": Spec((batch, d), f32, ("batch", None)),
+        "x_cm": Spec((batch, d), f32, ("batch", None)),
+    }
+
+
+def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
+    """xx_t = x_{t-1}; token 0 sees ``prev`` (decode state) or zeros."""
+    first = (torch.zeros_like(x[:, :1]) if prev is None
+             else prev[:, None].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p: dict, x: torch.Tensor, xx: torch.Tensor):
+    """Finch data-dependent token-shift mixes for the 5 streams."""
+    dx = xx - x
+    z = x + dx * p["mu_x"].to(x.dtype)
+    za = torch.tanh(torch.einsum("bsd,dkl->bskl", z, p["mix_A"].to(x.dtype)))
+    mixes = (p["mu"].to(x.dtype)
+             + torch.einsum("bskl,kld->bskd", za, p["mix_B"].to(x.dtype)))
+    return tuple(x + dx * mixes[:, :, i] for i in range(_N_MIX))  # w,k,v,r,g
+
+
+def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked-parallel WKV6.  All (B,S,H,N) in f32; s0 (B,H,N,N).
+
+    y_t = r_t . (S_{t-1} + (u*k_t) v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    """
+    S = r.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)[None, :, :, None, None]
+    state = s0
+    ys = []
+    for c0 in range(0, S, c):
+        rc, kc, vc, lwc = (a[:, c0:c0 + c] for a in (r, k, v, log_w))
+        p = torch.cumsum(lwc, dim=1)  # inclusive log-decay
+        p_prev = p - lwc  # exclusive (through t-1)
+        y_inter = torch.einsum("blhn,bhnm->blhm", rc * torch.exp(p_prev), state)
+        # intra-chunk: A[t,s] = sum_n r_t[n] k_s[n] exp(p_prev[t,n] - p[s,n]), s<t
+        diff = p_prev[:, :, None] - p[:, None, :]  # (B, c, c, H, N)
+        D = torch.where(tri, torch.exp(diff), 0.0)
+        A = torch.einsum("blhn,bmhn,blmhn->blmh", rc, kc, D)
+        y_intra = torch.einsum("blmh,bmhn->blhn", A, vc)
+        bonus = torch.einsum("blhn,hn,blhn->blh", rc, u, kc)
+        ys.append(y_inter + y_intra + bonus[..., None] * vc)
+        k_hat = kc * torch.exp(p[:, -1:] - p)
+        state = (torch.exp(p[:, -1])[..., None] * state
+                 + torch.einsum("blhn,blhm->bhnm", k_hat, vc))
+    return torch.cat(ys, dim=1), state
+
+
+def _group_norm(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor, n: int,
+                eps: float = 1e-5) -> torch.Tensor:
+    B, S, d = y.shape
+    yh = y.reshape(B, S, d // n, n).float()
+    mean = yh.mean(-1, keepdim=True)
+    var = yh.var(-1, keepdim=True, unbiased=False)
+    yh = (yh - mean) * torch.rsqrt(var + eps)
+    return (yh.reshape(B, S, d) * w.float() + b.float()).to(y.dtype)
+
+
+def apply_rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        state: dict | None, mode: str,
+                        active: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, dict | None]:
+    cdt = torch_dtype(cfg.compute_dtype)
+    B, S, d = x.shape
+    h, n = _heads(cfg)
+
+    # chunk_prefill continues a prefix: token 0 shifts against the cached
+    # last-token activation (zeros when fresh, == _shift's zero pad)
+    prev = (state["x_tm"] if (state is not None
+                              and mode in ("decode", "chunk_prefill"))
+            else None)
+    xx = _shift(x, prev)
+    xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
+
+    r = (xr @ p["w_r"].to(cdt)).reshape(B, S, h, n)
+    k = (xk @ p["w_k"].to(cdt)).reshape(B, S, h, n)
+    v = (xv @ p["w_v"].to(cdt)).reshape(B, S, h, n)
+    g = xg @ p["w_g"].to(cdt)
+    # decay_B and u are read in f32, as JAX reads them
+    w_raw = (p["w0"].float()
+             + torch.tanh(xw @ p["decay_A"].to(cdt)).float()
+             @ p["decay_B"].float())
+    log_w = -torch.exp(w_raw).reshape(B, S, h, n)
+
+    r32, k32, v32 = (a.float().contiguous() for a in (r, k, v))
+    u = p["u"].float().contiguous()
+    s0 = (state["S"] if state is not None
+          else torch.zeros((B, h, n, n), dtype=torch.float32, device=x.device))
+
+    if mode == "decode":
+        y, s_fin = wkv_recurrent(r32, k32, v32, log_w, u, s0)
+    elif mode in ("prefill", "chunk_prefill"):
+        y, s_fin = kops.linear_scan(r32, k32, v32, log_w.contiguous(), u, s0)
+    else:  # train: the differentiable chunked form (the kernel has no backward)
+        y, s_fin = wkv_chunked(r32, k32, v32, log_w, u, s0)
+
+    y = _group_norm(y.reshape(B, S, d).to(cdt), p["ln_w"], p["ln_b"], n)
+    out = (y * F.silu(g)) @ p["w_o"].to(cdt)
+
+    if state is not None:
+        x_tm = x[:, -1].float()
+        if active is not None:  # inactive slots keep their state verbatim
+            s_fin = torch.where(active[:, None, None, None], s_fin, state["S"])
+            x_tm = torch.where(active[:, None], x_tm, state["x_tm"])
+        state["S"].copy_(s_fin)
+        state["x_tm"].copy_(x_tm)
+    return out, state
+
+
+def apply_rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                           state: dict | None, mode: str,
+                           active: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, dict | None]:
+    cdt = torch_dtype(cfg.compute_dtype)
+    prev = (state["x_cm"] if (state is not None
+                              and mode in ("decode", "chunk_prefill"))
+            else None)
+    xx = _shift(x, prev)
+    dx = xx - x
+    xk = x + dx * p["mu_k"].to(cdt)
+    xr = x + dx * p["mu_r"].to(cdt)
+    kk = torch.square(torch.relu(xk @ p["w_k"].to(cdt)))
+    out = torch.sigmoid(xr @ p["w_r"].to(cdt)) * (kk @ p["w_v"].to(cdt))
+    if state is not None:
+        x_cm = x[:, -1].float()
+        if active is not None:
+            x_cm = torch.where(active[:, None], x_cm, state["x_cm"])
+        state["x_cm"].copy_(x_cm)
+    return out, state

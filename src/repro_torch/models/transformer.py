@@ -1,8 +1,9 @@
 """Block composition: per-layer kinds -> segments.
 
 Port of ``repro.models.transformer`` for attention layers (``attn``/``swa``)
-with a dense MLP; MoE, MLA, recurrent and cross-attention kinds are later
-slices and raise ``NotImplementedError``.
+with a dense MLP and for RWKV-6 layers (``rwkv6``: time mix, then channel
+mix); MoE, MLA, RG-LRU and cross-attention kinds are later slices and raise
+``NotImplementedError``.
 
 Layers are grouped into *segments* as in JAX: a maximal run whose cyclic
 super-block repeats >= 2 times is "scanned" -- its weights and caches carry
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.attention import ModelCtx
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.utils import Spec, tree_map
@@ -64,7 +66,7 @@ def plan_segments(cfg: ModelConfig, kinds: list[LayerKind]) -> list[Segment]:
 
 def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
     t, is_moe = kind
-    if t not in ("attn", "swa") or is_moe or cfg.use_mla:
+    if t not in ("attn", "swa", "rwkv6") or is_moe or cfg.use_mla:
         raise NotImplementedError(
             f"layer kind {kind} (mla={cfg.use_mla}) is not ported yet")
 
@@ -78,11 +80,17 @@ def init_layer(gen: torch.Generator | None, cfg: ModelConfig, kind: LayerKind,
                *, stack: int = 0, device: torch.device | str = "cuda") -> dict:
     _check_kind(cfg, kind)
     kw = dict(stack=stack, device=device)
+    if kind[0] == "rwkv6":
+        core = rec_mod.init_rwkv_time_mix(gen, cfg, **kw)
+        mlp = rec_mod.init_rwkv_channel_mix(gen, cfg, **kw)
+    else:
+        core = attn_mod.init_attention(gen, cfg, **kw)
+        mlp = init_mlp(gen, cfg, **kw)
     return {
         "norm1": init_norm(cfg, cfg.d_model, **kw),
-        "core": attn_mod.init_attention(gen, cfg, **kw),
+        "core": core,
         "norm2": init_norm(cfg, cfg.d_model, **kw),
-        "mlp": init_mlp(gen, cfg, **kw),
+        "mlp": mlp,
     }
 
 
@@ -90,9 +98,12 @@ def cache_specs_for_kind(cfg: ModelConfig, kind: LayerKind, batch: int,
                          max_len: int, dtype,
                          pages: tuple[int, int] | None = None) -> dict:
     """``pages=(n_pages, page_size)`` swaps full-attention KV caches for
-    shared page pools; SWA rings stay slot-dense (O(window) per slot)."""
+    shared page pools; SWA rings and recurrent states stay slot-dense
+    (O(window) and O(1) per slot)."""
     _check_kind(cfg, kind)
     t, _ = kind
+    if t == "rwkv6":
+        return rec_mod.rwkv_state_specs(batch, cfg)
     if t == "swa":
         size = min(cfg.window, max_len) if cfg.window else max_len
         return attn_mod.kv_cache_specs(batch, size, cfg.n_kv_heads,
@@ -104,10 +115,28 @@ def cache_specs_for_kind(cfg: ModelConfig, kind: LayerKind, batch: int,
                                    cfg.head_dim, cfg.head_dim, dtype)
 
 
+def _active_mask(ctx: ModelCtx) -> torch.Tensor | None:
+    """Per-slot liveness for decode: pos < 0 marks a slot whose recurrent
+    state must pass through unchanged (it is being chunk-prefilled while the
+    rest of the batch decodes)."""
+    if ctx.mode == "decode" and ctx.cache_pos is not None:
+        return ctx.cache_pos >= 0
+    return None
+
+
 def apply_layer(p: dict, cfg: ModelConfig, kind: LayerKind, x: torch.Tensor,
                 cache: Any, ctx: ModelCtx) -> tuple[torch.Tensor, Any]:
     t, _ = kind
     h = apply_norm(p["norm1"], cfg, x)
+    if t == "rwkv6":
+        active = _active_mask(ctx)
+        y, cache = rec_mod.apply_rwkv_time_mix(p["core"], cfg, h, cache,
+                                               ctx.mode, active=active)
+        x = x + y
+        h = apply_norm(p["norm2"], cfg, x)
+        y, cache = rec_mod.apply_rwkv_channel_mix(p["mlp"], cfg, h, cache,
+                                                  ctx.mode, active=active)
+        return x + y, cache
     window = cfg.window if t == "swa" else 0
     # only full-attention layers page
     paged = ctx.table is not None and t == "attn" and ctx.mode == "decode"

@@ -1,9 +1,10 @@
 """The port's LanguageModel against the JAX package on the same weights.
 
-gemma-2b (MQA, head_dim 32 at smoke size), deepseek-7b (MHA) and
+gemma-2b (MQA, head_dim 32 at smoke size), deepseek-7b (MHA),
 h2o-danube-1.8b (GQA with a 16-token sliding window: ring caches that wrap,
-slot-dense leaves in the paged cache) smoke configs in f32 compute, JAX
-weights carried across with ``repro_torch.bridge``.  Each case reproduces a ``tests/test_decode_parity.py``
+slot-dense leaves in the paged cache) and rwkv6-1.6b (pure recurrence: the
+WKV scan in prefill, per-slot states in the paged cache) smoke configs in
+f32 compute, JAX weights carried across with ``repro_torch.bridge``.  Each case reproduces a ``tests/test_decode_parity.py``
 test against the JAX full forward, at that file's bounds: 2e-4 on prefill
 logits, 3e-4 on decode logits.
 """
@@ -27,8 +28,10 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch.paged_kv import PagedKVCache, decompose  # noqa: E402
 from repro_torch.models import LanguageModel  # noqa: E402
 from repro_torch.models.attention import ModelCtx  # noqa: E402
+from repro_torch.utils import tree_map  # noqa: E402
 
-ARCHS = ["gemma-2b", "deepseek-7b", "h2o-danube-1.8b"]
+ATTN_ARCHS = ["gemma-2b", "deepseek-7b", "h2o-danube-1.8b"]
+ARCHS = ATTN_ARCHS + ["rwkv6-1.6b"]
 B, S = 2, 24
 
 
@@ -131,7 +134,7 @@ def test_paged_chunked_decode_matches_full_forward(arch):
             err_msg=f"{arch}: paged decode step {step} diverged")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_prefill_takes_flash_path(arch, monkeypatch):
     """Full prefill with implicit positions calls the flash dispatch once per
     layer; explicit positions and chunked prefill never do."""
@@ -154,6 +157,68 @@ def test_prefill_takes_flash_path(arch, monkeypatch):
     model.prefill_chunk(params, {"tokens": t[:, :4]}, cache,
                         torch.zeros((B,), dtype=torch.int32))
     assert len(calls) == model.cfg.n_layers
+
+
+def test_prefill_takes_wkv_kernel_path(monkeypatch):
+    """Full and chunked prefill call the WKV scan dispatch once per rwkv
+    layer; decode steps never do (they run the per-step recurrence)."""
+    model, params, tokens, _ = _setup("rwkv6-1.6b")
+    calls = []
+    real = kops.linear_scan
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(kops, "linear_scan", counting)
+    t = torch.from_numpy(tokens)
+    L = model.cfg.n_layers
+    cache = model.init_cache(B, max_len=S, dtype=torch.float32)
+    model.prefill(params, {"tokens": t[:, :8]}, cache)
+    assert len(calls) == L
+    model.prefill_chunk(params, {"tokens": t[:, 8:12]}, cache,
+                        torch.full((B,), 8, dtype=torch.int32))
+    assert len(calls) == 2 * L and calls[-1][:2] == (B, 4)
+    for step in range(12, 14):
+        model.decode_step(params, t[:, step:step + 1], cache,
+                          torch.full((B,), step, dtype=torch.int32))
+    assert len(calls) == 2 * L
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+def test_cast_for_compute_changes_no_number(arch):
+    """In bf16 compute, serving on ``cast_for_compute(params)`` equals
+    serving on the f32 masters bit for bit: the load-time copy casts exactly
+    the weights that every use casts.  Every leaf is moved off its init
+    value first (norm scales, w0, u ...) so a weight rounded to bf16 where
+    the model reads it in f32 would show."""
+    name = arch.replace("-", "_").replace(".", "_")
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").smoke()
+    assert cfg.compute_dtype == "bfloat16"
+    model = LanguageModel(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    masters = tree_map(
+        lambda w: w + 0.05 * torch.randn(w.shape, generator=gen),
+        model.init(0))
+    cast = model.cast_for_compute(masters)
+    t = torch.from_numpy(
+        np.random.RandomState(1).randint(0, cfg.vocab_size, (B, S)))
+    runs = []
+    for p in (masters, cast):
+        cache = model.init_cache(B, max_len=S)
+        logits, cache = model.prefill(p, {"tokens": t[:, :S - 2]}, cache)
+        outs = [logits]
+        for step in range(S - 2, S):
+            logits, cache = model.decode_step(
+                p, t[:, step:step + 1], cache,
+                torch.full((B,), step, dtype=torch.int32))
+            outs.append(logits)
+        runs.append((outs, cache))
+    (a, cache_a), (b, cache_b) = runs
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    tree_map(lambda x, y: None if torch.equal(x, y) else pytest.fail("cache"),
+             cache_a, cache_b)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -183,9 +248,13 @@ def test_bridge_rejects_missing_extra_and_misshaped_leaves():
 
 def test_init_matches_jax_tree_shapes():
     """The port's own seeded init draws exactly the JAX tree (keys, shapes,
-    stacked layers axis) -- what bridging the other way relies on."""
-    jcfg, tcfg = _configs("gemma-2b")
-    jshapes = jax.tree.map(lambda a: tuple(a.shape),
-                           JaxLM(jcfg).abstract_params())
-    tparams = LanguageModel(tcfg, device="cpu").init(0)
-    assert jax.tree.map(lambda t: tuple(t.shape), tparams) == jshapes
+    dtypes, stacked layers axis) -- what bridging the other way relies on."""
+    for arch in ("gemma-2b", "rwkv6-1.6b"):
+        jcfg, tcfg = _configs(arch)
+        jtree = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                             JaxLM(jcfg).abstract_params())
+        tparams = LanguageModel(tcfg, device="cpu").init(0)
+        ttree = jax.tree.map(
+            lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+            tparams)
+        assert ttree == jtree, arch

@@ -1,12 +1,15 @@
 """The port's serving engines against the JAX engines on the same weights.
 
-gemma-2b smoke params (f32 compute) are drawn by the JAX package and carried
-across with ``repro_torch.bridge``.  Over ``tests/test_serving.py``'s ragged
-trace and its ``_paged`` settings, the port's ``PagedServingEngine`` and
-``ContinuousBatcher`` must emit exactly the JAX engines' greedy tokens, with
-the same host-sync and decode-tick counts.
+gemma-2b and rwkv6-1.6b smoke params (f32 compute) are drawn by the JAX
+package and carried across with ``repro_torch.bridge``.  Over
+``tests/test_serving.py``'s ragged trace and its ``_paged`` settings, the
+port's ``PagedServingEngine`` and ``ContinuousBatcher`` must emit exactly the
+JAX engines' greedy tokens, with the same host-sync and decode-tick counts.
+rwkv6 has no page pool leaf: its per-slot states go through the paged
+cache's gather, scatter and reset as dense leaves.
 """
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -16,11 +19,10 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import gemma_2b as jax_gemma  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models import LanguageModel as JaxLM  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.configs import gemma_2b as torch_gemma  # noqa: E402
+from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import LanguageModel  # noqa: E402
 
@@ -28,20 +30,22 @@ PAGED = dict(n_slots=3, max_len=64, page_size=8, chunk_max=8, drain_every=4)
 LENS = [3, 9, 5, 13, 4, 11, 6]
 
 
-def _trace(mk, seed=3):
+def _trace(mk, vocab=512, seed=3):
     """test_serving.py::_ragged_trace: mixed prompt lengths, staggered
     arrivals, ragged max_new -- interleaved admissions, completions and slot
     reuse."""
     rng = np.random.RandomState(seed)
-    return [mk(rid=i, prompt=rng.randint(0, 512, LENS[i]).tolist(),
+    return [mk(rid=i, prompt=rng.randint(0, vocab, LENS[i]).tolist(),
                max_new=3 + (i % 4) * 2, arrival=2 * i)
             for i in range(len(LENS))]
 
 
 @functools.lru_cache(maxsize=None)
-def _models():
-    jcfg = jax_gemma.smoke().scaled(compute_dtype="float32")
-    tcfg = torch_gemma.smoke().scaled(compute_dtype="float32")
+def _models(arch="gemma-2b"):
+    name = arch.replace("-", "_").replace(".", "_")
+    jcfg = importlib.import_module(f"repro.configs.{name}").smoke()
+    tcfg = importlib.import_module(f"repro_torch.configs.{name}").smoke()
+    jcfg, tcfg = (c.scaled(compute_dtype="float32") for c in (jcfg, tcfg))
     jmodel = JaxLM(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tmodel = LanguageModel(tcfg, device="cpu")
@@ -50,18 +54,18 @@ def _models():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_paged_run():
-    jmodel, jparams, _, _ = _models()
-    reqs = _trace(jserve.Request)
+def _jax_paged_run(arch="gemma-2b"):
+    jmodel, jparams, _, _ = _models(arch)
+    reqs = _trace(jserve.Request, jmodel.cfg.vocab_size)
     eng = jserve.PagedServingEngine(jmodel, jparams, dtype=jnp.float32, **PAGED)
     stats = eng.run(reqs)
     return [r.out for r in reqs], stats
 
 
-def test_paged_engine_matches_jax_engine():
-    _, _, tmodel, tparams = _models()
-    jax_out, jstats = _jax_paged_run()
-    reqs = _trace(tserve.Request)
+def _check_paged_engine(arch):
+    _, _, tmodel, tparams = _models(arch)
+    jax_out, jstats = _jax_paged_run(arch)
+    reqs = _trace(tserve.Request, tmodel.cfg.vocab_size)
     eng = tserve.PagedServingEngine(tmodel, tparams, dtype=torch.float32,
                                     **PAGED)
     stats = eng.run(reqs)
@@ -74,20 +78,66 @@ def test_paged_engine_matches_jax_engine():
     for key in ("host_syncs", "decode_ticks", "drains", "prefill_chunks",
                 "ticks"):
         assert stats[key] == jstats[key], (key, stats[key], jstats[key])
+    return stats
 
 
-def test_continuous_batcher_matches_jax_batcher():
-    jmodel, jparams, tmodel, tparams = _models()
-    jreqs = _trace(jserve.Request)
+def _check_continuous_batcher(arch):
+    jmodel, jparams, tmodel, tparams = _models(arch)
+    vocab = tmodel.cfg.vocab_size
+    jreqs = _trace(jserve.Request, vocab)
     jstats = jserve.ContinuousBatcher(jmodel, jparams, n_slots=3, max_len=64,
                                       enc_len=0).run(jreqs)
-    reqs = _trace(tserve.Request)
+    reqs = _trace(tserve.Request, vocab)
     stats = tserve.ContinuousBatcher(tmodel, tparams, n_slots=3,
                                      max_len=64).run(reqs)
-    jax_paged_out, _ = _jax_paged_run()
+    jax_paged_out, _ = _jax_paged_run(arch)
     for r, jr, pr in zip(reqs, jreqs, jax_paged_out):
         assert r.done and not r.rejected
         assert r.out == jr.out == pr, (r.rid, r.out, jr.out, pr)
+    for key in ("tokens", "ticks", "host_syncs"):
+        assert stats[key] == jstats[key], (key, stats[key], jstats[key])
+
+
+def test_paged_engine_matches_jax_engine():
+    _check_paged_engine("gemma-2b")
+
+
+def test_continuous_batcher_matches_jax_batcher():
+    _check_continuous_batcher("gemma-2b")
+
+
+def test_rwkv_paged_engine_matches_jax_engine():
+    """Pure recurrence: no page pool leaf, so pages are only booked; padded
+    prefill-group members scan zero state and are never written back."""
+    before = ls.launches
+    stats = _check_paged_engine("rwkv6-1.6b")
+    assert ls.launches == before  # the CPU path never launches the kernel
+    assert stats["prefill_chunks"] > 0
+
+
+def test_rwkv_continuous_batcher_matches_jax_batcher():
+    _check_continuous_batcher("rwkv6-1.6b")
+
+
+def test_rwkv_slots_recycled_match_jax():
+    """test_serving.py::test_slots_recycled on both packages: 5 requests
+    through 2 dense slots, the same greedy tokens and counters."""
+    jmodel, jparams, tmodel, tparams = _models("rwkv6-1.6b")
+
+    def trace(mk):
+        rng = np.random.RandomState(1)
+        return [mk(rid=i, prompt=rng.randint(0, 256, 3).tolist(), max_new=4)
+                for i in range(5)]
+
+    jreqs = trace(jserve.Request)
+    jstats = jserve.ContinuousBatcher(jmodel, jparams, n_slots=2, max_len=32,
+                                      enc_len=0).run(jreqs)
+    reqs = trace(tserve.Request)
+    stats = tserve.ContinuousBatcher(tmodel, tparams, n_slots=2,
+                                     max_len=32).run(reqs)
+    assert stats["requests"] == 5 and stats["tokens"] == 20
+    assert all(r.done for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
     for key in ("tokens", "ticks", "host_syncs"):
         assert stats[key] == jstats[key], (key, stats[key], jstats[key])
 
