@@ -7,17 +7,26 @@ Phases, each of which raises on failure (no phase is skipped, nothing falls
 back to the CPU):
 
 1. env      -- card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build    -- every CUDA kernel of the port, compiled from this checkout;
+2. build    -- every CUDA kernel of the port, compiled from this checkout,
+               with ptxas' registers and spill stores of each function, read
+               from the log kept beside each library (the flash kernel's
+               wgmma body at D = Dv = 256 and 128 must report no spill);
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the serving paths' shapes (flash also at the head dims of the
-               model zoo), with its time, the plain version's, a PyTorch
-               library call's (a yardstick the port never calls) where one
-               exists, and the card's bound;
+               the serving paths' shapes (flash at every prompt length of the
+               gemma-2b trace, and at the head dims of the model zoo), with
+               the body that ran and its split-KV plan, its time, the plain
+               version's, a PyTorch library call's (a yardstick the port
+               never calls) where one exists, and the card's bound; at the
+               gemma-2b and deepseek-7b prefill shapes also the mma.sync
+               body, asked for through ``_body``, on the same inputs;
 4. serve    -- gemma-2b at full width (18 layers, d_model 2048, vocab 256000,
                random weights from seed 0, bf16 compute) serving 6 ragged
                prompts through ``ContinuousBatcher`` (full prefill: the flash
                kernel) and ``PagedServingEngine`` (chunked prefill + paged
                decode); the launch counts are read around each engine;
+               then one more dense run under ``torch.profiler``, whose trace
+               gives the flash kernel's device time over the trace's
+               prefills (``trace_device_ms``);
 5. parity   -- the same weights in f32 compute: first-token logits of the
                dense path (flash kernel) against the paged path (plain
                attention), and greedy agreement of the two engines;
@@ -68,6 +77,9 @@ KERNEL_CASES = [
      torch.bfloat16),
     ("deepseek7b_prefill", 1, 2048, 2048, 32, 32, 128, 128, True, 0, 0, 1.0,
      False, torch.bfloat16),
+    # gemma-2b at the serving trace's other prompt lengths (PROMPT_LENS)
+    *((f"gemma_p{n}", 1, n, n, 8, 1, 256, 256, True, 0, 0, 1.0, False,
+       torch.bfloat16) for n in (97, 180, 351, 563, 742)),
     ("window_d80", 1, 1024, 1024, 32, 8, 80, 80, True, 256, 0, 1.0, False,
      torch.bfloat16),
     ("d192_dv128", 1, 512, 512, 16, 16, 192, 128, True, 0, 0, 1.0, False,
@@ -93,6 +105,12 @@ WKV_CASES = [
     ("padded_100", 2, 100, 2, 32),
 ]
 PROMPT_LENS = [97, 1000, 351, 742, 180, 563]
+# cases where the wgmma body replaces the mma.sync body, which is timed
+# beside it in the same run (``_body="mma"``)
+PREV_BODY_CASES = ("gemma_prefill", "deepseek7b_prefill")
+# wgmma instantiations that must compile without spills (Dv = D = 256, 128)
+NO_SPILL = ("flash_fwd_wgmma_kernelILi256ELi256E",
+            "flash_fwd_wgmma_kernelILi128ELi128E")
 MAX_NEW = 16
 PARITY_TOL = 1e-3  # f32 logits of magnitude ~1; only summation order differs
 
@@ -120,12 +138,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return s.elapsed_time(e) / reps
 
 
-def device_ms(fn, reps: int = 5, tries: int = 3) -> float | None:
+def device_ms(fn, reps: int = 5, tries: int = 3,
+              by_kernel: dict | None = None) -> float | None:
     """Device time per call from a ``torch.profiler`` trace: the summed time
     of every kernel (and memset) the call runs on the card, without the
-    host's launch overhead.  A trace now and then comes back without device
-    events; it is taken again, and after ``tries`` empty traces the time is
-    reported as not measured (None) -- a supplementary number, not a check."""
+    host's launch overhead; ``by_kernel``, if given, receives it per kernel
+    name.  A trace now and then comes back without device events; it is
+    taken again, and after ``tries`` empty traces the time is reported as
+    not measured (None) -- a supplementary number, not a check."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -135,9 +157,15 @@ def device_ms(fn, reps: int = 5, tries: int = 3) -> float | None:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.device_time for e in events)
         if us > 0:
+            if by_kernel is not None:
+                for e in events:
+                    m = re.search(r"\w+_kernel\w*?(?:<[^>]*>|I\w+?E(?=E))?", e.name)
+                    key = m.group(0) if m else e.name[:60]
+                    by_kernel[key] = by_kernel.get(key, 0.0) + e.device_time / reps / 1e3
             return us / reps / 1e3
     log(f"[kernels] device_ms: {tries} profiler traces held no device "
         f"time; not measured")
@@ -158,16 +186,55 @@ def phase_env() -> str:
     return card
 
 
-def phase_build() -> None:
+def _ptxas_report(text: str) -> dict[str, dict]:
+    """Registers and spill stores of each kernel in one nvcc log (-Xptxas
+    -v): {function: {"registers": n, "spill_stores": bytes}}.  A spill line
+    belongs to the function its "Function properties for" line names, which
+    may be a device function called by the kernel being compiled."""
+    import re
+
+    report, entry, props = {}, None, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = props = m.group(1)
+            report[entry] = {}
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif entry and props == entry and (
+                m := re.search(r"(\d+) bytes spill stores", line)):
+            report[entry]["spill_stores"] = int(m.group(1))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            report[entry]["registers"] = int(m.group(1))
+    return report
+
+
+def phase_build() -> dict[str, dict]:
+    """Builds every kernel; logs ptxas' report of each function (the flash
+    kernel's bodies: flash_fwd_wgmma_kernel<D, Dv>, flash_merge_kernel<Dv>,
+    flash_fwd_mma_kernel<Dv>, flash_fwd_fma_kernel<Dv>) from the log kept
+    beside each library, so a cached build reports too; fails if a NO_SPILL
+    instantiation spills or has no report."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     secs = build.build_all()
     log(f"[build] {json.dumps(secs)} total {time.perf_counter() - t0:.1f}s")
-    for name, text in build.build_logs.items():
+    ptxas = {}
+    for name in build.sources():
+        text = build.build_log(name)
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "warning" in line or "Potential Performance Loss" in line:
                 log(f"[build] {name}: {line.strip()}")
+        for fn, rep in _ptxas_report(text).items():
+            ptxas[fn] = rep
+            log(f"[build] {name}: {fn}: {json.dumps(rep)}")
+    for key in NO_SPILL:
+        hits = [r for fn, r in ptxas.items() if key in fn]
+        if not hits or any("spill_stores" not in r for r in hits):
+            raise AssertionError(f"[build] no ptxas spill report for {key}")
+        if any(r["spill_stores"] for r in hits):
+            raise AssertionError(f"[build] {key} spills: {hits}")
+    return ptxas
 
 
 def _visible(case) -> torch.Tensor:
@@ -240,7 +307,28 @@ def phase_kernels() -> list[dict]:
             raise AssertionError(f"[kernels] {name}: kernel disagrees with its "
                                  f"plain version, max abs err {err}")
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
-        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        dev_kernels = {}
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                           by_kernel=dev_kernels)
+        scale = D ** -0.5
+        body = fa.select_body(dt, D, Dv, scale)
+        plan = (fa.split_plan(B, Sq, Skv, Hq, causal, window, q_offset)
+                if body == "wgmma" else None)
+        prev = {}
+        if name in PREV_BODY_CASES:  # the mma.sync body, same inputs, same run
+            prev_out = fa.flash_attention(q, k, v, _body="mma", **kw)
+            torch.cuda.synchronize()
+            prev_diff = (prev_out.float() - ref.float()).abs()
+            prev_err = float(prev_diff.max())
+            if bool((prev_diff > tol + tol * ref.float().abs()).any()):
+                raise AssertionError(f"[kernels] {name}: mma body disagrees, "
+                                     f"max abs err {prev_err}")
+            prev = dict(
+                prev_body="mma", prev_body_max_abs_err=prev_err,
+                prev_body_ms=cuda_ms(
+                    lambda: fa.flash_attention(q, k, v, _body="mma", **kw)),
+                prev_body_device_ms=device_ms(
+                    lambda: fa.flash_attention(q, k, v, _body="mma", **kw)))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                            reps=5)
         lib = _library_call(case, q, k, v)
@@ -250,9 +338,15 @@ def phase_kernels() -> list[dict]:
         row = dict(case=name, shape=[B, Sq, Skv, Hq, Hkv, D, Dv],
                    dtype=str(dt).replace("torch.", ""), causal=causal,
                    window=window, q_offset=q_offset, max_abs_err=err,
-                   tol=tol, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   tol=tol, body=body,
+                   splits=len(plan.merges) if plan else 0,
+                   items=len(plan.items) if plan else None,
+                   critical_tiles=max(it[4] - it[3] for it in plan.items)
+                   if plan else None,
+                   ms=ms, device_ms=dev_ms, device_ms_by_kernel=dev_kernels,
+                   plain_ms=plain_ms,
                    library_ms=library_ms, library_device_ms=library_device_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, **prev)
         log(f"[kernels] {json.dumps(row)}")
         results.append(row)
     return results
@@ -308,7 +402,8 @@ def phase_wkv_kernel() -> list[dict]:
         bound_ms, bound_by = _wkv_bound(args, y, s_fin)
         row = dict(case=name, shape=[B, S, H, N], dtype="float32",
                    max_abs_err=err, max_abs_plain=float(y_ref.abs().max()),
-                   tol=f"{WKV_TOL} x max(1, max |plain|)", ms=ms,
+                   tol=f"{WKV_TOL} x max(1, max |plain|)",
+                   body="per-step scan", splits=0, ms=ms,
                    device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
                    library_device_ms=None, bound_ms=bound_ms,
                    bound_by=bound_by)
@@ -492,7 +587,8 @@ def phase_parity_rwkv(model32, params) -> None:
     _engines_agree(model32, params, prompts)
 
 
-def _kernel_entry(name, source, replaces, launches, rows, library):
+def _kernel_entry(name, source, replaces, launches, rows, library, ptxas,
+                  **extra):
     head = rows[0]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
@@ -502,12 +598,51 @@ def _kernel_entry(name, source, replaces, launches, rows, library):
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "library": library,
-            "shape": head["shape"], "cases": rows}
+            "body": head["body"], "splits": head["splits"],
+            "shape": head["shape"], "ptxas": ptxas, **extra, "cases": rows}
+
+
+def phase_trace_flash(model, params, tries: int = 2) -> float | None:
+    """Device time of the flash kernel over the trace's full prefills,
+    measured: one more dense-engine run of the same requests under
+    ``torch.profiler``, summing every flash_fwd_* and flash_merge kernel the
+    trace holds.  Also logs their counts and their share of all device time
+    in the run.  A trace without device events is taken again; after
+    ``tries`` the time is not measured (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import ContinuousBatcher, Request
+
+    prompts = _prompts(model.cfg.vocab_size)
+    for _ in range(tries):
+        reqs = [Request(rid=i, prompt=list(p), max_new=MAX_NEW)
+                for i, p in enumerate(prompts)]
+        batcher = ContinuousBatcher(model, params, n_slots=4, max_len=1024)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            batcher.run(reqs)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            continue
+        fwd = [e for e in events if "flash_fwd" in e.name]
+        merge = [e for e in events if "flash_merge" in e.name]
+        ms = sum(e.device_time for e in fwd + merge) / 1e3
+        all_ms = sum(e.device_time for e in events) / 1e3
+        log(f"[trace] {model.cfg.name} dense run under torch.profiler: flash "
+            f"device time {ms} ms over {len(fwd)} flash_fwd and {len(merge)} "
+            f"flash_merge launches ({model.cfg.n_layers} layers x prompts "
+            f"{PROMPT_LENS}); all kernels {all_ms} ms, flash share "
+            f"{ms / all_ms}")
+        return ms
+    log(f"[trace] {tries} profiler traces held no device time; the trace's "
+        f"flash time is not measured")
+    return None
 
 
 def main() -> None:
     card = phase_env()
-    phase_build()
+    ptxas = phase_build()
     flash_rows = phase_kernels()
     wkv_rows = phase_wkv_kernel()
 
@@ -525,6 +660,7 @@ def main() -> None:
         f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s")
     cast = model.cast_for_compute(params)
     flash_launches = phase_serve(model, cast, fa, lambda stats: 0)
+    trace_ms = phase_trace_flash(model, cast)
     phase_bf16_gap(model, cast)
     del cast
     torch.cuda.empty_cache()
@@ -557,10 +693,15 @@ def main() -> None:
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
                       flash_launches, flash_rows,
-                      "F.scaled_dot_product_attention"),
+                      "F.scaled_dot_product_attention",
+                      {f: r for f, r in ptxas.items() if "flash" in f},
+                      prev_body_device_ms=flash_rows[0].get(
+                          "prev_body_device_ms"),
+                      trace_device_ms=trace_ms),
         _kernel_entry("linear_scan", WKV_SOURCE, WKV_REPLACES, wkv_launches,
                       wkv_rows, "none: no single PyTorch call computes the "
-                      "WKV scan"),
+                      "WKV scan", {f: r for f, r in ptxas.items()
+                                   if "wkv" in f or "scan" in f}),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own for ``sm_90a`` into
-``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root.  The
-hash covers the source and the flags, so a library is rebuilt only when
-either changes.  Builds happen at first use (``load``), or all at once and in
-parallel through ``build_all``; nothing is compiled at import.
+``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root, with
+nvcc's output (ptxas' register and spill report) beside it in
+``<name>-<hash>.log``.  The hash covers the source and the flags, so a
+library is rebuilt only when either changes.  Builds happen at first use
+(``load``), or all at once and in parallel through ``build_all``; nothing is
+compiled at import.
 """
 from __future__ import annotations
 
@@ -23,8 +25,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
-#: compiler output (ptxas register / shared-memory report) of each build
-build_logs: dict[str, str] = {}
 
 
 def sources() -> list[str]:
@@ -70,14 +70,19 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
-        build_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)  # before the library appears
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from the build of the current library of ``name``."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

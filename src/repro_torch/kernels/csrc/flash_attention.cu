@@ -16,31 +16,72 @@
 // shapes of gemma-2b (S ~ 1000, 8 query heads, D = 256) the FLOPs dominate
 // (about 290 FLOP per byte moved), so the roofline is the tensor cores.
 //
-// What the design does about it: every (batch, q-head, 64-row q tile) is one
-// thread block that keeps its Q tile in shared memory and streams 64-key K/V
-// tiles past it, so K and V are read once per q tile and the (Sq x Skv)
-// score matrix never reaches device memory.  Tiles that the causal or window
-// mask hides entirely are never loaded, which halves the causal work.  The
-// ragged Sq / Skv edges are masked inside the kernel: no padded copies.
+// Common to every body: a (batch, q-head, 64-row q tile) unit streams
+// 64-key K/V tiles past its Q tile, so the (Sq x Skv) scores never reach
+// device memory, and whole tiles that the causal or window mask hides are
+// never loaded (half the causal work).
 //
-// Two bodies, chosen by the input dtype:
-//  * bf16 (the serving path): both products on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate).  Four warps each own 16
-//    query rows; the scores and the online softmax stay in registers, and
-//    the probabilities are re-packed in place as the A operand of the PV
-//    product (rounded to bf16, as the plain attention path rounds them to
-//    v's dtype).  K/V tiles are double-buffered: the next tile's 16-byte
-//    cp.async copies are in flight while this tile computes.  Fragments
-//    come from shared memory through ldmatrix (.trans for V), from rows
-//    padded by 8 elements so that each 8-row matrix hits 32 distinct banks.
-//    No wgmma, TMA or warp specialisation yet.
+// Three bodies, chosen by shape and dtype (repro_flash_attention_select):
+//
+//  * wgmma (bf16, D in {64, 128, 192, 256}, Dv in {64, 128, 256}: gemma-2b,
+//    deepseek-7b, the zoo's 192/128; scale > 0).  One CTA of 160 threads per
+//    work item: warpgroup 0 (128 threads, 64 query rows) computes, warp 4
+//    loads.  What it does about each limit of the mma.sync body below:
+//    1. Tensor cores: S = Q K^T is wgmma m64n64k16 with Q and K read from
+//       shared memory through descriptors, and O += P V is wgmma m64nDvk16
+//       with P from registers (the S accumulator converted in place to bf16
+//       pairs, its layout being the A-register layout) and V read MN-major
+//       (the transpose bit) from the tile TMA wrote.  Each K/V byte in
+//       shared memory feeds all 64 rows of the warpgroup at once, and Q is
+//       never re-read into registers.
+//    2. Latency: K and V arrive by TMA (cp.async.bulk.tensor, one thread)
+//       into a ring of 2 stages with full/empty mbarriers, so the next
+//       tile's loads run under this tile's products and softmax.  Tiles are
+//       128-byte swizzled (64 bf16 a box row; a D = 256 row is four boxes)
+//       and 1024-byte aligned.  The 4-D tensor maps over (d, head, s, batch)
+//       zero-fill rows past each batch's S edge.  The softmax folds
+//       scale * log2(e) into one FFMA per score before ex2.approx, and masks
+//       only tiles that cross the causal diagonal, the window edge or Skv.
+//       Shared memory at D = Dv = 256: Q 32 KB + 2 x (K 32 KB + V 32 KB) =
+//       160 KB (+ 1 KB alignment), one CTA per SM; no room for a third stage.
+//       At D = Dv = 128 it is 80 KB, and two CTAs per SM hide each other's
+//       softmax.  (Overlapping one tile's S product with the previous
+//       tile's PV product inside the warpgroup, as FlashAttention-3 does,
+//       was slower on an H100 80GB HBM3 at both prefill shapes, and is not
+//       kept.)
+//    3. Too few CTAs: the grid is a list of work items from the split plan
+//       (kernels/flash_attention.py::split_plan).  When there are fewer
+//       units than SMs, or the longest unit walks more than twice the mean
+//       number of key tiles, each unit longer than ceil(tile-steps / 132) is
+//       cut into parts of at most that many tiles.  Parts write f32 partials
+//       (unnormalised o, max in log2 units, l) to scratch, and
+//       flash_merge_kernel merges them in part order (no atomics: the same
+//       bits every run) with the epilogue.  Items run heaviest first.
+//    4. Host work: the dynamic shared-memory limit is raised once per kernel
+//       and device, not per launch; the wrapper caches the plan on the
+//       device per shape, uploaded from pinned memory without a stream sync.
+//    Registers: ptxas -v (CUDA 12.9) reports 215 registers at D = Dv = 256
+//    and 150 at D = Dv = 128, 0 bytes of spill stores in all 12 (D, Dv)
+//    instantiations, under launch bounds of one CTA an SM at Dv = 256 and
+//    two below.  No setmaxnreg: shared memory already caps the CTAs an SM,
+//    so registers the producer warp gave back would feed no other CTA; it
+//    belongs with a pingpong of two consumer warpgroups.
+//    flash_merge_kernel: 32 registers, an 8-byte stack frame, 4 bytes of
+//    spill stores.
+//  * mma.sync (bf16, the other head dims: 16, 32, 80, 96/64; and on request
+//    at any bf16 shape, to time it against wgmma): mma.sync m16n8k16 with
+//    f32 accumulation, four warps of 16 query rows, ldmatrix fragments from
+//    padded rows, cp.async double-buffered K/V tiles, one CTA per (q tile,
+//    head, batch).  Every warp reads the whole K and V tile, so each K/V
+//    fragment feeds only 16 rows; shared memory at D = Dv = 256 is 165 KB.
+//    ptxas: 243 registers at Dv = 256, 96 to 168 below, no spills.
 //  * f32: FMAs on the CUDA cores (a 4 x 4 score micro-tile and a 4 x Dv/16
 //    output micro-tile per thread), which keeps f32 inputs exact to the f32
-//    reference (TF32 would not); it is capped by the f32 FMA rate.
-//
-// Shared memory at D = Dv = 256: 165 KB (bf16 body), 210 KB (f32 body) --
-// above the 48 KB static limit, so each launch raises the dynamic limit.
+//    reference (TF32 would not); it is capped by the f32 FMA rate.  210 KB
+//    of shared memory at D = Dv = 256; ptxas: 64 to 128 registers, no
+//    spills.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -315,6 +356,469 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(Args a) {
   }
 }
 
+// Accumulator operands of the wgmma wrappers, eight at a time
+#define WG_F8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64, f32) (+)= A (64 x 16) * B (16 x 64): A and B from shared memory
+// through descriptors, both K-major; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) * B (16 x 64) from
+// shared memory through a descriptor, MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 pairs in registers) * B (16 x 128) from
+// shared memory through a descriptor, MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256, f32) += A (64 x 16, bf16 pairs in registers) * B (16 x 256) from
+// shared memory through a descriptor, MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56),
+        WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88),
+        WG_F8(96), WG_F8(104), WG_F8(112), WG_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 body for D in {64, 128, 192, 256}, Dv in {64, 128, 256}: wgmma on
+// TMA-fed tiles, one consumer warpgroup, a producer warp, split-KV work items
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 160;  // warpgroup 0 computes, warp 4 loads
+constexpr int kStages = 2;       // K/V ring depth
+constexpr int kBox = 64;         // elements of one 128-byte swizzled TMA box row
+constexpr uint32_t kBoxBytes = 64 * 128;  // one box: 64 rows of 128 bytes
+// The register budget is the launch bound's: Dv = 256 (O alone is 128 f32 a
+// thread) runs one CTA an SM, Dv <= 128 two.
+__host__ __device__ constexpr int wg_ctas_per_sm(int dv) { return dv == 256 ? 1 : 2; }
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One CTA's work: q tile `qt` of (batch b, q-head h) against key tiles
+// [kt0, kt1); slot >= 0 sends the unnormalised result to that partial
+// instead of the output.  Eight ints: the plan's rows (kernels/flash_attention.py).
+struct Item {
+  int b, h, qt, kt0, kt1, slot, pad0, pad1;
+};
+// A split unit, merged from partials slot0 .. slot0 + n_parts - 1 in order
+struct Merge {
+  int b, h, qt, slot0, n_parts, pad0, pad1, pad2;
+};
+
+struct WgArgs {
+  Args a;
+  const Item* items;
+  const Merge* merges;
+  float* part_o;   // (slots, kBlockQ, Dv): sum_k p v, unnormalised
+  float* part_ml;  // (slots, 2, kBlockQ): running max in log2 units (-inf: no key), sum l
+};
+
+// Q, then kStages K tiles, then kStages V tiles, each 1024-byte aligned for
+// the 128-byte swizzle; then 7 mbarriers; plus slack to align the base
+__host__ __device__ constexpr size_t wg_smem_bytes(int d, int dv) {
+  return 1024 + sizeof(bf16) * (size_t)(kBlockQ * d + kStages * kBlockK * (d + dv)) + 64;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.  A wait of
+// more than about 2 s traps: a lost transfer fails the launch, it does not
+// hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (4LL << 30)) __trap();
+  }
+}
+
+// TMA: one box of a 4-D tensor map at coordinates (c0, c1, c2, c3),
+// innermost first, into shared memory; completes `bytes` on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled shared-memory operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = SW128
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers in place around an asynchronous wgmma: the compiler may not
+// move their reads or writes across this point
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+
+// O (64 x DV) += P (64 x 16, registers) * V (16 x DV, shared memory)
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&p)[4],
+                                         uint64_t dv) {
+  if constexpr (DV == 64) wgmma_rs_n64(o, p, dv);
+  if constexpr (DV == 128) wgmma_rs_n128(o, p, dv);
+  if constexpr (DV == 256) wgmma_rs_n256(o, p, dv);
+}
+
+// Grid: one CTA per work item, heaviest first.  Tensor maps are 4-D over
+// (d, head, s, batch) with a (64, 1, 64, 1) box, so rows past a batch's S
+// edge arrive as zeros.
+template <int D, int DV>
+__global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const WgArgs w) {
+  constexpr uint32_t kQBytes = kBlockQ * D * 2, kKBytes = kBlockK * D * 2;
+  constexpr uint32_t kVBytes = kBlockK * DV * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + kQBytes;               // stage s at sK + s * kKBytes
+  const uint32_t sV = sK + kStages * kKBytes;     // stage s at sV + s * kVBytes
+  const uint32_t q_full = sV + kStages * kVBytes;  // then k_full[2], v_full[2], empty[2]
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+  const Args& a = w.a;
+  const Item it = w.items[blockIdx.x];
+  const int n_tiles = it.kt1 - it.kt0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);  // every consumer thread releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: one thread keeps the ring full; no path rejoins the consumers
+    if (lane == 0) {
+      const int hk = it.h / (a.Hq / a.Hkv);
+      mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load(sQ + c * kBoxBytes, &tm_q, q_full, c * kBox, it.h, it.qt * kBlockQ, it.b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);  // round 0 passes at once
+        const int k0 = (it.kt0 + i) * kBlockK;
+        mbar_expect_tx(k_full + 8 * s, kKBytes);
+#pragma unroll
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(sK + s * kKBytes + c * kBoxBytes, &tm_k, k_full + 8 * s, c * kBox, hk, k0,
+                   it.b);
+        mbar_expect_tx(v_full + 8 * s, kVBytes);
+#pragma unroll
+        for (int c = 0; c < DV / kBox; ++c)
+          tma_load(sV + s * kVBytes + c * kBoxBytes, &tm_v, v_full + 8 * s, c * kBox, hk, k0,
+                   it.b);
+      }
+    }
+  } else {
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const int q0 = it.qt * kBlockQ, pq0 = a.q_offset + q0;
+    const float sl2 = a.scale * kLog2e;  // scores to log2 units: one FFMA with the max
+    float o[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {kNegInf, kNegInf};  // running max, raw score units
+    float l_r[2] = {0.f, 0.f};          // this thread's share of the running sum
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      const int k0 = (it.kt0 + i) * kBlockK;
+
+      // S = Q K^T: Q and K both K-major; a 16-wide k-step is 32 bytes into
+      // a swizzled 128-byte row, and every 64 dims the next box
+      float sc[32];
+      mbar_wait(k_full + 8 * s, parity);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n64(sc, sw128_desc(sQ + off, 16, 1024),
+                     sw128_desc(sK + s * kKBytes + off, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+
+      // sc[4j + e]: row r0 + 8 (e / 2), key k0 + 8 j + 2 t + e % 2.  Only a
+      // tile that crosses the causal diagonal, the window edge or Skv masks;
+      // a masked score is a true -inf, so an all-masked row keeps l == 0.
+      const bool edge = (a.causal && k0 + kBlockK - 1 > pq0) ||
+                        (a.window > 0 && pq0 + kBlockQ - 1 - k0 >= a.window) ||
+                        k0 + kBlockK > a.Skv;
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!visible(pq0 + r0 + 8 * (e / 2), k0 + 8 * j + 2 * t + (e & 1), a.Skv, a.causal,
+                         a.window))
+              sc[4 * j + e] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+      float alpha[2], ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);  // finite: m starts at kNegInf
+        alpha[r] = ex2((m_r[r] - m_new) * sl2);
+        l_r[r] *= alpha[r];
+        m_r[r] = m_new;
+        ms[r] = m_new == kNegInf ? 0.f : m_new * sl2;  // nothing seen yet: every p is 0
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, -ms[e / 2]));
+          l_r[e / 2] += sc[4 * j + e];  // reduced over the row's 4 lanes at the end
+        }
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      // P in place as the A operand, rounded to bf16: the accumulator pairs
+      // of keys [16 ks, 16 ks + 16) are exactly one k-step's A registers
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pa[ks][x] = pack(sc[8 * ks + 2 * x], sc[8 * ks + 2 * x + 1]);
+
+      // O += P V: V is MN-major (Dv contiguous); a 16-key k-step is two
+      // 8-row groups (stride 1024 bytes), each 64 columns the next box
+      mbar_wait(v_full + 8 * s, parity);
+      pin(o);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_pv<DV>(o, pa[ks], sw128_desc(sV + s * kVBytes + ks * 2048, kBoxBytes, 1024));
+      wg_commit();
+      wg_wait_all();
+      pin(o);
+      pin(pa);  // the A registers stay live until the products that read them are done
+      mbar_arrive(empty + 8 * s);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    }
+    if (it.slot < 0) {
+      // restrict: the residual loads may all issue before the first store
+      const bf16* __restrict__ res = static_cast<const bf16*>(a.res);
+      bf16* __restrict__ out = static_cast<bf16*>(a.out);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int sq = q0 + r0 + 8 * r;
+        if (sq >= a.Sq) continue;
+        const float inv = a.out_scale / (l_r[r] == 0.f ? 1.f : l_r[r]);  // no key -> 0
+        const long long o_row = (((long long)it.b * a.Sq + sq) * a.Hq + it.h) * DV;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          float v0 = o[4 * j + 2 * r] * inv, v1 = o[4 * j + 2 * r + 1] * inv;
+          if (res != nullptr) {
+            const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(res + o_row + c);
+            v0 += __low2float(rv);
+            v1 += __high2float(rv);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(out + o_row + c) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    } else {
+      float* po = w.part_o + (size_t)it.slot * kBlockQ * DV;
+      float* pml = w.part_ml + (size_t)it.slot * 2 * kBlockQ;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<float2*>(po + row * DV + 8 * j + 2 * t) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+        if (t == 0) {
+          pml[row] = m_r[r] == kNegInf ? -INFINITY : m_r[r] * sl2;
+          pml[kBlockQ + row] = l_r[r];
+        }
+      }
+    }
+  }
+}
+
+// Merge the parts of each split unit in part order (no atomics: the same
+// bits every run), then the epilogue: out = o / l * out_scale + residual,
+// a row that no part saw (l == 0) -> 0.  One CTA per kMergeRows rows of a
+// split unit; a thread takes 4 columns of a row, its parts' loads
+// independent of each other.
+constexpr int kMergeRows = 8;
+
+template <int DV>
+__global__ void __launch_bounds__(256) flash_merge_kernel(const WgArgs w) {
+  constexpr int kChunks = DV / 4;
+  const Args& a = w.a;
+  const Merge mg = w.merges[blockIdx.x / (kBlockQ / kMergeRows)];
+  const int row0 = (blockIdx.x % (kBlockQ / kMergeRows)) * kMergeRows;
+  const float* ml = w.part_ml + (size_t)mg.slot0 * 2 * kBlockQ;
+  const bf16* __restrict__ res = static_cast<const bf16*>(a.res);
+  bf16* __restrict__ out = static_cast<bf16*>(a.out);
+  for (int idx = threadIdx.x; idx < kMergeRows * kChunks; idx += blockDim.x) {
+    const int row = row0 + idx / kChunks, c = 4 * (idx % kChunks);
+    const int sq = mg.qt * kBlockQ + row;
+    if (sq >= a.Sq) continue;
+    float mmax = -INFINITY;
+    for (int p = 0; p < mg.n_parts; ++p) mmax = fmaxf(mmax, ml[p * 2 * kBlockQ + row]);
+    float l = 0.f, v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (mmax != -INFINITY) {
+#pragma unroll 4
+      for (int p = 0; p < mg.n_parts; ++p) {
+        const float wt = ex2(ml[p * 2 * kBlockQ + row] - mmax);
+        const float4 po = *reinterpret_cast<const float4*>(
+            w.part_o + ((size_t)(mg.slot0 + p) * kBlockQ + row) * DV + c);
+        l += ml[p * 2 * kBlockQ + kBlockQ + row] * wt;
+        v[0] += po.x * wt;
+        v[1] += po.y * wt;
+        v[2] += po.z * wt;
+        v[3] += po.w * wt;
+      }
+    }
+    const float inv = a.out_scale / (l == 0.f ? 1.f : l);
+    const long long o_row = (((long long)mg.b * a.Sq + sq) * a.Hq + mg.h) * DV;
+    __nv_bfloat162 pair[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      float v0 = v[2 * x] * inv, v1 = v[2 * x + 1] * inv;
+      if (res != nullptr) {
+        const __nv_bfloat162 rv =
+            *reinterpret_cast<const __nv_bfloat162*>(res + o_row + c + 2 * x);
+        v0 += __low2float(rv);
+        v1 += __high2float(rv);
+      }
+      pair[x] = __floats2bfloat162_rn(v0, v1);
+    }
+    *reinterpret_cast<uint2*>(out + o_row + c) = *reinterpret_cast<const uint2*>(pair);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // f32 body: CUDA-core FMAs, 16 x 16 threads
 // ---------------------------------------------------------------------------
@@ -480,42 +984,153 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_fma_kernel(Args a) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, const Args& a, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+
+// Raise a kernel's dynamic shared-memory limit once per device, not on every
+// launch
+template <auto Kernel>
+cudaError_t raise_smem_limit(size_t smem) {
+  static size_t set_bytes[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem <= set_bytes[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) set_bytes[dev] = smem;
+  return err;
+}
+
+template <auto Kernel>
+cudaError_t launch(int threads, size_t smem, const Args& a, cudaStream_t stream) {
+  const cudaError_t err = raise_smem_limit<Kernel>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
-  kernel<<<grid, threads, smem, stream>>>(a);
+  Kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime: no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A failed encode returns kEncodeError + the CUresult (the wrapper says so)
+constexpr int kEncodeError = 100000;
+
+// 4-D map over (d, head, s, batch) of a contiguous (B, S, H, d) bf16 tensor;
+// box (64, 1, 64, 1) in the 128-byte swizzle; out-of-range rows read 0
+int encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int d) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * d, 2ull * d * H, 2ull * d * H * S};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)kBlockK, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+template <int D, int DV>
+int launch_wgmma(const WgArgs& w, int n_items, int n_merges, cudaStream_t stream) {
+  const Args& a = w.a;
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, a.q, a.B, a.Sq, a.Hq, D);
+  if (err == 0) err = encode(&tk, a.k, a.B, a.Skv, a.Hkv, D);
+  if (err == 0) err = encode(&tv, a.v, a.B, a.Skv, a.Hkv, DV);
+  if (err != 0) return err;
+  const size_t smem = wg_smem_bytes(D, DV);
+  err = raise_smem_limit<flash_fwd_wgmma_kernel<D, DV>>(smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D, DV><<<n_items, kWgThreads, smem, stream>>>(tq, tk, tv, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_merges == 0) return err;
+  flash_merge_kernel<DV><<<n_merges * (kBlockQ / kMergeRows), 256, 0, stream>>>(w);
   return cudaGetLastError();
 }
 
 #define REPRO_FA_CASES(X) X(16) X(32) X(64) X(80) X(96) X(128) X(256)
+#define REPRO_FA_WG_DV(X, D_) X(D_, 64) X(D_, 128) X(D_, 256)
+#define REPRO_FA_WG_CASES(X) \
+  REPRO_FA_WG_DV(X, 64) REPRO_FA_WG_DV(X, 128) REPRO_FA_WG_DV(X, 192) REPRO_FA_WG_DV(X, 256)
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() of the launch (0 on
-// success).  `res` may be null.  All tensors contiguous (B, S, H, D); bf16
-// needs D and Dv multiples of 16 and 16-byte aligned pointers.
+// The body that runs: 0 = f32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma; -1 if
+// the request cannot run.  request: 0 = by shape and dtype, 1 = mma.sync,
+// 2 = wgmma.  By shape and dtype, bf16 with D a multiple of 64 up to 256,
+// Dv in {64, 128, 256} and scale > 0 (the running max is taken on raw
+// scores) takes wgmma; other bf16 head dims take mma.sync.
+int repro_flash_attention_select(int dtype, int D, int Dv, float scale, int request) {
+  const bool wgmma = dtype == 1 && D % 64 == 0 && D > 0 && D <= 256 &&
+                     (Dv == 64 || Dv == 128 || Dv == 256) && scale > 0.f;
+  if (dtype == 0) return request == 0 ? 0 : -1;
+  if (dtype != 1 || D % 16 != 0) return -1;
+  if (request == 1) return 1;
+  if (request == 2) return wgmma ? 2 : -1;
+  return request == 0 ? (wgmma ? 2 : 1) : -1;
+}
+
+// Launches on `stream` and returns the launch's error (0 on success), or
+// 100000 + the CUresult of a failed tensor-map encode.  `res` may be null.
+// All tensors contiguous (B, S, H, D); bf16 needs D and Dv multiples of 16
+// and 16-byte aligned pointers.  The wgmma body takes the work items of the
+// split plan (`items`, n_items rows of 8 ints), its merges (n_merges rows of
+// 8 ints, may be 0) and f32 scratch for the partials: part_o (slots, 64,
+// Dv) and part_ml (slots, 2, 64).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, const void* res,
                               void* out, int dtype, int B, int Sq, int Skv, int Hq, int Hkv,
                               int D, int Dv, int causal, int window, int q_offset, float scale,
-                              float out_scale, void* stream) {
+                              float out_scale, int body, const void* items, int n_items,
+                              const void* merges, int n_merges, void* part_o, void* part_ml,
+                              void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, res, out, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset,
                scale, out_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (D % 16 != 0) return cudaErrorInvalidValue;
+  body = repro_flash_attention_select(dtype, D, Dv, scale, body);
+  if (body == 2) {
+    if (items == nullptr || n_items <= 0 || (n_merges > 0 && (merges == nullptr ||
+                                                              part_o == nullptr ||
+                                                              part_ml == nullptr)))
+      return cudaErrorInvalidValue;
+    const WgArgs w{a, static_cast<const Item*>(items), static_cast<const Merge*>(merges),
+                   static_cast<float*>(part_o), static_cast<float*>(part_ml)};
+#define REPRO_FA_WG(D_, DV_) \
+  if (D == D_ && Dv == DV_) return launch_wgmma<D_, DV_>(w, n_items, n_merges, s);
+    REPRO_FA_WG_CASES(REPRO_FA_WG)
+#undef REPRO_FA_WG
+  } else if (body == 1) {
 #define REPRO_FA_MMA(DV_) \
-  if (Dv == DV_) return launch(flash_fwd_mma_kernel<DV_>, kMmaThreads, mma_smem_bytes(D, DV_), a, s);
+  if (Dv == DV_) return launch<flash_fwd_mma_kernel<DV_>>(kMmaThreads, mma_smem_bytes(D, DV_), a, s);
     REPRO_FA_CASES(REPRO_FA_MMA)
 #undef REPRO_FA_MMA
-  } else if (dtype == 0) {
+  } else if (body == 0) {
 #define REPRO_FA_FMA(DV_) \
-  if (Dv == DV_) return launch(flash_fwd_fma_kernel<DV_>, kFmaThreads, fma_smem_bytes(D, DV_), a, s);
+  if (Dv == DV_) return launch<flash_fwd_fma_kernel<DV_>>(kFmaThreads, fma_smem_bytes(D, DV_), a, s);
     REPRO_FA_CASES(REPRO_FA_FMA)
 #undef REPRO_FA_FMA
   }

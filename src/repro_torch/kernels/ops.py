@@ -1,8 +1,10 @@
 """Dispatch for the port's kernels.
 
 ``flash_attention`` is the hand-written Hopper kernel's wrapper
-(``kernels/flash_attention.py``) at its fixed 64 x 64 tiles; a shape-keyed
-tuner for it is later work.  ``linear_scan`` is the RWKV-6 WKV scan kernel's
+(``kernels/flash_attention.py``): 64-row q tiles against 64-key tiles, on
+the wgmma body for bf16 head dims that are multiples of 64 (with the
+split-KV plan for short prompts), the mma.sync body for other bf16 head
+dims and the FMA body for f32; a shape-keyed tuner for it is later work.  ``linear_scan`` is the RWKV-6 WKV scan kernel's
 wrapper (``kernels/linear_scan.py``).  ``paged_attention`` is a gather plus
 the plain ``attention_core``, as in the JAX package -- not a kernel.
 """

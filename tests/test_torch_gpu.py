@@ -20,7 +20,24 @@ GPU_CASES = [
     (1, 300, 300, 4, 2, 80, 80, True, 64, 0, 1.0, torch.bfloat16),
     (1, 100, 300, 2, 2, 192, 128, True, 0, 200, 1.0, torch.bfloat16),
     (2, 130, 130, 4, 4, 64, 64, False, 0, 0, 0.5, torch.float32),
+    # the wgmma body: D = Dv = 128; D = 64 with a window and q_offset; a
+    # short gemma-2b prompt that splits; the residual epilogue, ragged Sq
+    (1, 512, 512, 4, 4, 128, 128, True, 0, 0, 1.0, torch.bfloat16),
+    (1, 200, 456, 4, 2, 64, 64, True, 96, 256, 1.0, torch.bfloat16),
+    (1, 97, 97, 8, 1, 256, 256, True, 0, 0, 1.0, torch.bfloat16),
+    (2, 130, 130, 4, 1, 128, 128, True, 0, 0, 0.5, torch.bfloat16),
 ]
+
+
+def _flash_inputs(case):
+    B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset, out_scale, dt = case
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, res = (torch.randn(s, generator=g, device="cuda").to(dt) for s in
+                    ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, Dv),
+                     (B, Sq, Hq, Dv)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              out_scale=out_scale, residual=res)
+    return q, k, v, kw
 
 
 @pytest.mark.gpu
@@ -30,20 +47,75 @@ def test_flash_kernel_matches_plain_on_gpu(case):
     2e-5 f32 -- the f32 kernel sums in another order than the einsum)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
-    B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset, out_scale, dt = case
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, res = (torch.randn(s, generator=g, device="cuda").to(dt) for s in
-                    ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, Dv),
-                     (B, Sq, Hq, Dv)))
-    kw = dict(causal=causal, window=window, q_offset=q_offset,
-              out_scale=out_scale, residual=res)
+    q, k, v, kw = _flash_inputs(case)
     before = fa.launches
     out = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     ref = fa.flash_attention_plain(q, k, v, **kw)
-    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_bodies_run_where_they_should():
+    """Which body each GPU case runs, and that the short gemma prompt
+    splits: every body and the split path are covered above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    bodies = {fa.select_body(c[-1], c[5], c[6], c[5] ** -0.5) for c in GPU_CASES}
+    assert bodies == {"fma", "mma", "wgmma"}
+    assert fa.split_plan(1, 97, 97, 8, True, 0, 0).merges
+    with pytest.raises(ValueError):  # no wgmma body at D = 80
+        fa.select_body(torch.bfloat16, 80, 80, 0.1, "wgmma")
+
+
+@pytest.mark.gpu
+def test_flash_wgmma_body_gives_identical_bits_twice():
+    """The split path merges its parts in a fixed order, without atomics:
+    two calls at gemma-2b's prefill shape give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(GPU_CASES[0])
+    assert fa.select_body(q.dtype, 256, 256, 256 ** -0.5) == "wgmma"
+    assert fa.split_plan(1, 1000, 1000, 8, True, 0, 0).merges
+    first = fa.flash_attention(q, k, v, **kw)
+    second = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_flash_new_shape_adds_no_stream_sync():
+    """A shape's first call uploads its split plan without synchronising the
+    stream (pinned rows, non-blocking copy), and still agrees (2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    case = (1, 333, 333, 8, 1, 256, 256, True, 0, 0, 1.0, torch.bfloat16)
+    q, k, v, kw = _flash_inputs(case)
+    assert fa.select_body(q.dtype, 256, 256, 256 ** -0.5) == "wgmma"
+    assert fa.split_plan(1, 333, 333, 8, True, 0, 0).merges
+    torch.cuda.synchronize()
+    fa._device_plan.cache_clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fa.flash_attention(q, k, v, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_mma_body_on_request_matches_plain():
+    """The mma.sync body, asked for through ``_body`` at the gemma-2b
+    shape where wgmma runs by default, still agrees (2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(GPU_CASES[0])
+    out = fa.flash_attention(q, k, v, _body="mma", **kw)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
 WKV_GPU_CASES = [
