@@ -18,7 +18,10 @@ back to the CPU):
                version's, a PyTorch library call's (a yardstick the port
                never calls) where one exists, and the card's bound; at the
                gemma-2b and deepseek-7b prefill shapes also the mma.sync
-               body, asked for through ``_body``, on the same inputs;
+               body, asked for through ``_body``, on the same inputs; the
+               WKV scan's chunked body at every WKV case, its step body
+               checked at every case too and timed beside it at the
+               rwkv6-1.6b prefill and paged chunk-round shapes;
 4. serve    -- gemma-2b at full width (18 layers, d_model 2048, vocab 256000,
                random weights from seed 0, bf16 compute) serving 6 ragged
                prompts through ``ContinuousBatcher`` (full prefill: the flash
@@ -34,7 +37,9 @@ back to the CPU):
                of 64, vocab 65536, seed 0, bf16 compute), the same prompts
                through both engines; the WKV scan kernel runs once per layer
                per full prefill (24 x 6 = 144 in the dense engine) and per
-               chunk round (24 x rounds in the paged engine);
+               chunk round (24 x rounds in the paged engine); then one
+               more dense run under ``torch.profiler`` for the WKV kernels'
+               device time over the trace's prefills;
 7. parity   -- rwkv6 in f32 compute: full-prefill first-token logits (WKV
                kernel) against token-by-token decode (the plain per-step
                recurrence), and greedy agreement of the two engines;
@@ -66,8 +71,9 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:45"
 WKV_SOURCE = "src/repro_torch/kernels/csrc/linear_scan.cu"
 WKV_REPLACES = "src/repro/kernels/linear_scan.py:36"
-# relative to max(1, max |plain|): the kernel steps token by token, the plain
-# version sums chunk-parallel through exp of decay differences
+# relative to max(1, max |plain|): the kernel sums in chunks of 64 with
+# 3xTF32 products (or token by token, the step body), the plain version
+# chunk-parallel through exp of decay differences
 WKV_TOL = 1e-4
 
 # (name, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset, out_scale,
@@ -91,26 +97,35 @@ KERNEL_CASES = [
     ("f32", 1, 512, 512, 8, 1, 256, 256, True, 0, 0, 1.0, False,
      torch.float32),
 ]
-# (name, B, S, H, N); the first is the serving path's (rwkv6-1.6b prefill),
-# then tests/test_kernels.py's WKV cases and its padded S = 100 case, a paged
-# chunk round (8 slots x 64 tokens) and an odd length
+# (name, B, S, H, N, w_hi); the first is the serving path's (rwkv6-1.6b
+# prefill), then a paged chunk round (8 slots x 64 tokens), an odd length,
+# tests/test_kernels.py's WKV cases and its padded S = 100 case, and strong
+# decays: log_w = -exp(w_raw), w_raw in [-6, w_hi] (w_hi 3: log_w to -20)
 WKV_CASES = [
-    ("rwkv6_prefill", 1, 1000, 32, 64),
-    ("chunk_round", 8, 64, 32, 64),
-    ("odd_97", 1, 97, 32, 64),
-    ("kernels_1", 1, 64, 2, 16),
-    ("kernels_2", 2, 128, 2, 32),
-    ("kernels_3", 1, 128, 4, 64),
-    ("kernels_4", 2, 96, 2, 16),
-    ("padded_100", 2, 100, 2, 32),
+    ("rwkv6_prefill", 1, 1000, 32, 64, 0.0),
+    ("chunk_round", 8, 64, 32, 64, 0.0),
+    ("odd_97", 1, 97, 32, 64, 0.0),
+    ("kernels_1", 1, 64, 2, 16, 0.0),
+    ("kernels_2", 2, 128, 2, 32, 0.0),
+    ("kernels_3", 1, 128, 4, 64, 0.0),
+    ("kernels_4", 2, 96, 2, 16, 0.0),
+    ("padded_100", 2, 100, 2, 32, 0.0),
+    ("strong_decay", 1, 1000, 32, 64, 3.0),
 ]
+# cases where the WKV scan's step body is timed beside the chunked one
+PREV_WKV_BODY_CASES = ("rwkv6_prefill", "chunk_round")
 PROMPT_LENS = [97, 1000, 351, 742, 180, 563]
 # cases where the wgmma body replaces the mma.sync body, which is timed
 # beside it in the same run (``_body="mma"``)
 PREV_BODY_CASES = ("gemma_prefill", "deepseek7b_prefill")
-# wgmma instantiations that must compile without spills (Dv = D = 256, 128)
+# kernels that must compile without spills: the flash wgmma body at
+# Dv = D = 256 and 128, every instantiation of the WKV chunked body's kernels
 NO_SPILL = ("flash_fwd_wgmma_kernelILi256ELi256E",
-            "flash_fwd_wgmma_kernelILi128ELi128E")
+            "flash_fwd_wgmma_kernelILi128ELi128E",
+            "wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
+# the kernels each wrapper launches, as torch.profiler names them
+FLASH_KERNELS = ("flash_fwd", "flash_merge")
+WKV_KERNELS = ("wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
 MAX_NEW = 16
 PARITY_TOL = 1e-3  # f32 logits of magnitude ~1; only summation order differs
 
@@ -211,7 +226,9 @@ def _ptxas_report(text: str) -> dict[str, dict]:
 def phase_build() -> dict[str, dict]:
     """Builds every kernel; logs ptxas' report of each function (the flash
     kernel's bodies: flash_fwd_wgmma_kernel<D, Dv>, flash_merge_kernel<Dv>,
-    flash_fwd_mma_kernel<Dv>, flash_fwd_fma_kernel<Dv>) from the log kept
+    flash_fwd_mma_kernel<Dv>, flash_fwd_fma_kernel<Dv>; the WKV scan's
+    wkv_chunk_kernel<N>, wkv_state_scan_kernel<N>, wkv_out_kernel<N> and
+    wkv_step_kernel<N>) from the log kept
     beside each library, so a cached build reports too; fails if a NO_SPILL
     instantiation spills or has no report."""
     from repro_torch.kernels import build
@@ -352,15 +369,15 @@ def phase_kernels() -> list[dict]:
     return results
 
 
-def _wkv_inputs(B, S, H, N, seed):
+def _wkv_inputs(B, S, H, N, seed, w_hi=0.0):
     """Realistic decays (tests/test_kernels.py::_wkv_inputs): log_w =
-    -exp(w_raw), w_raw in [-6, 0]; nonzero s0."""
+    -exp(w_raw), w_raw in [-6, w_hi] (0 there); nonzero s0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda")
 
-    w_raw = torch.rand((B, S, H, N), generator=g, device="cuda") * 6.0 - 6.0
+    w_raw = torch.rand((B, S, H, N), generator=g, device="cuda") * (w_hi + 6.0) - 6.0
     return (randn(B, S, H, N), randn(B, S, H, N), randn(B, S, H, N),
             -torch.exp(w_raw), randn(H, N) * 0.1, randn(B, H, N, N) * 0.5)
 
@@ -378,35 +395,56 @@ def _wkv_bound(args, y, s_fin) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _wkv_check(name, body, outs, refs) -> float:
+    """Max abs error of (y, s_fin) against the plain version's; raises past
+    WKV_TOL x max(1, max |plain|) or on a non-finite value."""
+    err = 0.0
+    for out, ref in zip(outs, refs):
+        e = float((out - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        if not bool(torch.isfinite(out).all()) or e > WKV_TOL * scale:
+            raise AssertionError(f"[kernels] wkv {name} ({body} body): kernel "
+                                 f"disagrees with its plain version, max abs "
+                                 f"err {e} (scale {scale})")
+        err = max(err, e)
+    return err
+
+
 def phase_wkv_kernel() -> list[dict]:
+    """The WKV scan's cases (WKV_CASES): the chunked body, the default, and
+    the step body on the same inputs (``_body="step"``)."""
     from repro_torch.kernels import linear_scan as ls
 
     results = []
-    for name, B, S, H, N in WKV_CASES:
-        args = _wkv_inputs(B, S, H, N, seed=len(results))
+    for name, B, S, H, N, w_hi in WKV_CASES:
+        args = _wkv_inputs(B, S, H, N, seed=len(results), w_hi=w_hi)
         y, s_fin = ls.linear_scan(*args)
         torch.cuda.synchronize()
-        y_ref, s_ref = ls.linear_scan_plain(*args)
-        err = 0.0
-        for out, ref in ((y, y_ref), (s_fin, s_ref)):
-            e = float((out - ref).abs().max())
-            scale = max(1.0, float(ref.abs().max()))
-            if not bool(torch.isfinite(out).all()) or e > WKV_TOL * scale:
-                raise AssertionError(f"[kernels] wkv {name}: kernel disagrees "
-                                     f"with its plain version, max abs err "
-                                     f"{e} (scale {scale})")
-            err = max(err, e)
+        refs = ls.linear_scan_plain(*args)
+        err = _wkv_check(name, "chunked", (y, s_fin), refs)
+        step_err = _wkv_check(name, "step", ls.linear_scan(*args, _body="step"),
+                              refs)
         ms = cuda_ms(lambda: ls.linear_scan(*args))
-        dev_ms = device_ms(lambda: ls.linear_scan(*args))
+        dev_kernels = {}
+        dev_ms = device_ms(lambda: ls.linear_scan(*args), by_kernel=dev_kernels)
+        prev = {}
+        if name in PREV_WKV_BODY_CASES:  # the step body, same inputs, same run
+            prev = dict(
+                prev_body="step", prev_body_max_abs_err=step_err,
+                prev_body_ms=cuda_ms(lambda: ls.linear_scan(*args, _body="step")),
+                prev_body_device_ms=device_ms(
+                    lambda: ls.linear_scan(*args, _body="step")))
         plain_ms = cuda_ms(lambda: ls.linear_scan_plain(*args), reps=5)
         bound_ms, bound_by = _wkv_bound(args, y, s_fin)
         row = dict(case=name, shape=[B, S, H, N], dtype="float32",
-                   max_abs_err=err, max_abs_plain=float(y_ref.abs().max()),
+                   w_raw_max=w_hi, max_abs_err=err, step_max_abs_err=step_err,
+                   max_abs_plain=float(refs[0].abs().max()),
                    tol=f"{WKV_TOL} x max(1, max |plain|)",
-                   body="per-step scan", splits=0, ms=ms,
-                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                   body="chunked", splits=0, ms=ms,
+                   device_ms=dev_ms, device_ms_by_kernel=dev_kernels,
+                   plain_ms=plain_ms, library_ms=None,
                    library_device_ms=None, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   bound_by=bound_by, **prev)
         log(f"[kernels] wkv {json.dumps(row)}")
         results.append(row)
     return results
@@ -602,11 +640,12 @@ def _kernel_entry(name, source, replaces, launches, rows, library, ptxas,
             "shape": head["shape"], "ptxas": ptxas, **extra, "cases": rows}
 
 
-def phase_trace_flash(model, params, tries: int = 2) -> float | None:
-    """Device time of the flash kernel over the trace's full prefills,
+def phase_trace(model, params, kernels: tuple[str, ...],
+                tries: int = 2) -> float | None:
+    """Device time of one wrapper's kernels over the trace's full prefills,
     measured: one more dense-engine run of the same requests under
-    ``torch.profiler``, summing every flash_fwd_* and flash_merge kernel the
-    trace holds.  Also logs their counts and their share of all device time
+    ``torch.profiler``, summing every kernel whose name holds one of
+    ``kernels``.  Also logs their counts and their share of all device time
     in the run.  A trace without device events is taken again; after
     ``tries`` the time is not measured (None)."""
     from torch.profiler import ProfilerActivity, profile
@@ -625,18 +664,17 @@ def phase_trace_flash(model, params, tries: int = 2) -> float | None:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         if not events:
             continue
-        fwd = [e for e in events if "flash_fwd" in e.name]
-        merge = [e for e in events if "flash_merge" in e.name]
-        ms = sum(e.device_time for e in fwd + merge) / 1e3
+        hits = {n: [e for e in events if n in e.name] for n in kernels}
+        ms = sum(e.device_time for es in hits.values() for e in es) / 1e3
         all_ms = sum(e.device_time for e in events) / 1e3
-        log(f"[trace] {model.cfg.name} dense run under torch.profiler: flash "
-            f"device time {ms} ms over {len(fwd)} flash_fwd and {len(merge)} "
-            f"flash_merge launches ({model.cfg.n_layers} layers x prompts "
-            f"{PROMPT_LENS}); all kernels {all_ms} ms, flash share "
-            f"{ms / all_ms}")
+        counts = " and ".join(f"{len(es)} {n}" for n, es in hits.items())
+        log(f"[trace] {model.cfg.name} dense run under torch.profiler: "
+            f"device time {ms} ms over {counts} launches "
+            f"({model.cfg.n_layers} layers x prompts {PROMPT_LENS}); all "
+            f"kernels {all_ms} ms, share {ms / all_ms}")
         return ms
     log(f"[trace] {tries} profiler traces held no device time; the trace's "
-        f"flash time is not measured")
+        f"{kernels} time is not measured")
     return None
 
 
@@ -660,7 +698,7 @@ def main() -> None:
         f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s")
     cast = model.cast_for_compute(params)
     flash_launches = phase_serve(model, cast, fa, lambda stats: 0)
-    trace_ms = phase_trace_flash(model, cast)
+    trace_ms = phase_trace(model, cast, FLASH_KERNELS)
     phase_bf16_gap(model, cast)
     del cast
     torch.cuda.empty_cache()
@@ -682,6 +720,7 @@ def main() -> None:
     cast = model.cast_for_compute(params)
     wkv_launches = phase_serve(model, cast, ls,
                                lambda stats: cfg.n_layers * stats["prefill_rounds"])
+    wkv_trace_ms = phase_trace(model, cast, WKV_KERNELS)
     phase_bf16_gap(model, cast)
     del cast
     torch.cuda.empty_cache()
@@ -701,7 +740,10 @@ def main() -> None:
         _kernel_entry("linear_scan", WKV_SOURCE, WKV_REPLACES, wkv_launches,
                       wkv_rows, "none: no single PyTorch call computes the "
                       "WKV scan", {f: r for f, r in ptxas.items()
-                                   if "wkv" in f or "scan" in f}),
+                                   if "wkv" in f or "scan" in f},
+                      prev_body_device_ms=wkv_rows[0].get(
+                          "prev_body_device_ms"),
+                      trace_device_ms=wkv_trace_ms),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,12 @@
 (``kernels/flash_attention.py``): 64-row q tiles against 64-key tiles, on
 the wgmma body for bf16 head dims that are multiples of 64 (with the
 split-KV plan for short prompts), the mma.sync body for other bf16 head
-dims and the FMA body for f32; a shape-keyed tuner for it is later work.  ``linear_scan`` is the RWKV-6 WKV scan kernel's
-wrapper (``kernels/linear_scan.py``).  ``paged_attention`` is a gather plus
+dims and the FMA body for f32; a shape-keyed tuner for it is later work.
+``linear_scan`` is the RWKV-6 WKV scan kernel's wrapper
+(``kernels/linear_scan.py``): on a CUDA tensor it runs the chunked body
+(64-step chunks as 3xTF32 tensor-core products, three launches) at every
+shape, and the per-step body only when a caller asks for it with
+``_body="step"``; a failed launch raises, nothing falls back.  ``paged_attention`` is a gather plus
 the plain ``attention_core``, as in the JAX package -- not a kernel.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (flash attention, the RWKV-6 WKV scan) against
-their plain versions, on the card.
+"""The port's CUDA kernels (flash attention, the RWKV-6 WKV scan, each of
+its bodies) against their plain versions, on the card.
 
 Run on a machine with an NVIDIA card (no JAX needed there):
 
@@ -126,14 +126,16 @@ WKV_GPU_CASES = [
 ]
 
 
-def _wkv_inputs(B, S, H, N, seed=0):
-    """Realistic decays log_w = -exp(w_raw), w_raw in [-6, 0]; nonzero s0."""
+def _wkv_inputs(B, S, H, N, seed=0, w_hi=0.0):
+    """Realistic decays log_w = -exp(w_raw), w_raw in [-6, w_hi] (0 unless
+    asked); nonzero s0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda")
 
-    w_raw = torch.rand((B, S, H, N), generator=g, device="cuda") * 6.0 - 6.0
+    w_raw = (torch.rand((B, S, H, N), generator=g, device="cuda")
+             * (w_hi + 6.0) - 6.0)
     return (randn(B, S, H, N), randn(B, S, H, N), randn(B, S, H, N),
             -torch.exp(w_raw), randn(H, N) * 0.1, randn(B, H, N, N) * 0.5)
 
@@ -142,19 +144,66 @@ def _wkv_inputs(B, S, H, N, seed=0):
 @pytest.mark.parametrize("case", WKV_GPU_CASES,
                          ids=lambda c: "x".join(map(str, c)))
 def test_wkv_kernel_matches_plain_on_gpu(case):
-    """The CUDA scan against the chunked plain version: 1e-4 relative to
-    max(1, max |plain|) -- the two sum in different orders, the plain one
-    through exp of decay differences."""
+    """The CUDA scan's default (chunked) body against the chunked plain
+    version: 1e-4 relative to max(1, max |plain|) -- the two sum in
+    different orders, the kernel with 3xTF32 products."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
-    args = _wkv_inputs(*case)
+    _assert_wkv_matches_plain(_wkv_inputs(*case))
+
+
+def _assert_wkv_matches_plain(args, body="chunked"):
+    """One launch of ``body`` against the plain version: y and s_fin within
+    1e-4 x max(1, max |plain|), finite."""
     before = ls.launches
-    y, s_fin = ls.linear_scan(*args)
+    y, s_fin = ls.linear_scan(*args, _body=body)
     torch.cuda.synchronize()
     assert ls.launches == before + 1
     y_ref, s_ref = ls.linear_scan_plain(*args)
     assert y.shape == y_ref.shape and s_fin.shape == s_ref.shape
     for out, ref in ((y, y_ref), (s_fin, s_ref)):
         assert bool(torch.isfinite(out).all())
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((out - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV_GPU_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_wkv_step_body_on_request_matches_plain(case):
+    """The per-step body, asked for through ``_body``, at every case the
+    chunked body (the default) runs above (1e-4 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    _assert_wkv_matches_plain(_wkv_inputs(*case), body="step")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["chunked", "step"])
+def test_wkv_strong_decay_matches_plain_on_gpu(body):
+    """Strong decays (w_raw up to 3, log_w down to about -20) at the
+    rwkv6-1.6b prefill shape: both bodies stay finite and within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    _assert_wkv_matches_plain(_wkv_inputs(1, 1000, 32, 64, seed=1, w_hi=3.0),
+                              body=body)
+
+
+@pytest.mark.gpu
+def test_wkv_chunked_new_shape_adds_no_stream_sync():
+    """The chunked body's first call at a shape no test ran before (a ragged
+    last chunk, two batches) allocates its scratch and launches its three
+    kernels without synchronising the stream, and still agrees (1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    args = _wkv_inputs(2, 333, 4, 64, seed=2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, s_fin = ls.linear_scan(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    y_ref, s_ref = ls.linear_scan_plain(*args)
+    for out, ref in ((y, y_ref), (s_fin, s_ref)):
         scale = max(1.0, float(ref.abs().max()))
         assert float((out - ref).abs().max()) <= 1e-4 * scale
