@@ -43,7 +43,17 @@ back to the CPU):
 7. parity   -- rwkv6 in f32 compute: full-prefill first-token logits (WKV
                kernel) against token-by-token decode (the plain per-step
                recurrence), and greedy agreement of the two engines;
-8. the kernels JSON line, then the card line, then the result line.
+8. train    -- the serving models freed: gemma-2b and rwkv6-1.6b smoke
+               configs, 3 train steps on the card against the CPU in f32;
+               preempt at step 8 and resume to 12 on the card against a
+               straight run; gemma-2b at full width (bf16, remat full,
+               B 2 x S 1024, seed 0), 20 steps of ``train``: finite and
+               falling loss, no flash or WKV launch, the step wall,
+               tokens/s, model-FLOP share, peak memory; then one step
+               under ``torch.profiler`` (busy share, top kernels, time by
+               kernel kind) and one cut into forward, backward and
+               optimizer (host enqueue against device time);
+9. the kernels JSON line, then the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository.
@@ -128,6 +138,19 @@ FLASH_KERNELS = ("flash_fwd", "flash_merge")
 WKV_KERNELS = ("wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
 MAX_NEW = 16
 PARITY_TOL = 1e-3  # f32 logits of magnitude ~1; only summation order differs
+# train steps, card against CPU in f32: sums in another order, through 3
+# steps of AdamW (whose first steps move each weight by about the lr)
+TRAIN_TOL = 1e-4
+# resumed against straight, as tests/test_train_resume.py bounds it
+RESUME_TOL = 1e-3
+# the full-width train phase: gemma-2b, 2 x 1024 tokens a step; peak lr
+# OptConfig's default (train()'s 3e-3 is for the smoke configs)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
+# kernel kinds of the profiled train step, by substrings of their names
+TRACE_KINDS = (("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
+               ("reduce", ("reduce_kernel",)),
+               ("elementwise", ("elementwise_kernel",)),
+               ("copy", ("Memcpy", "Memset", "CatArrayBatchedCopy")))
 
 
 def log(*a) -> None:
@@ -678,6 +701,231 @@ def phase_trace(model, params, kernels: tuple[str, ...],
     return None
 
 
+def _train_steps(model, params, batches):
+    """Losses of ``make_train_step`` over ``batches`` (updates ``params``)."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import AdamW, OptConfig
+
+    opt = AdamW(OptConfig(peak_lr=3e-3, warmup_steps=2, decay_steps=10))
+    step, state, losses = make_train_step(model, opt), opt.init(params), []
+    dev = model.device
+    for b in batches:
+        params, state, m = step(params, state, {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return losses, params
+
+
+def phase_train_parity() -> None:
+    """Train steps on the card against the CPU, smoke size, f32 compute
+    (the CPU path is the one the CPU tests hold against JAX): 3 steps of
+    ``make_train_step`` from the same seed-0 weights on the same batches;
+    losses within TRAIN_TOL relative, every parameter after the steps within
+    TRAIN_TOL x max(1, max |p|)."""
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch.train import smoke_config
+    from repro_torch.models import LanguageModel
+    from repro_torch.utils import tree_leaves, tree_map
+
+    for arch in ("gemma-2b", "rwkv6-1.6b"):
+        cfg = smoke_config(arch).scaled(compute_dtype="float32")
+        cpu = LanguageModel(cfg, device="cpu")
+        p_cpu = cpu.init(0)
+        p_gpu = tree_map(lambda t: t.to("cuda", copy=True), p_cpu)
+        data = TokenDataset(vocab_size=cfg.vocab_size, seq_len=64,
+                            global_batch=2)
+        batches = [data.batch(i) for i in range(3)]
+        l_cpu, p_cpu = _train_steps(cpu, p_cpu, batches)
+        l_gpu, p_gpu = _train_steps(LanguageModel(cfg, device="cuda"), p_gpu,
+                                    batches)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        par_err = 0.0
+        for a, b in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)):
+            a, b = a.detach().cpu(), b.detach()
+            err = float((a - b).abs().max())
+            par_err = max(par_err, err / max(1.0, float(b.abs().max())))
+        log(f"[train] {arch} smoke, card vs CPU over 3 steps: losses "
+            f"{l_gpu} vs {l_cpu}; max rel loss diff {loss_err:.3e}, max "
+            f"param diff / max(1, max |p|) {par_err:.3e} (tol {TRAIN_TOL})")
+        if not (loss_err <= TRAIN_TOL and par_err <= TRAIN_TOL):
+            raise AssertionError(f"[train] {arch}: card and CPU part")
+
+
+def phase_train_resume() -> None:
+    """Preempt at step 8 (exit 17), resume to 12 from the committed
+    checkpoint, against a straight 12-step run, on the card (smoke size)."""
+    import tempfile
+
+    from repro_torch.launch.train import train
+
+    kw = dict(arch="gemma-2b", smoke=True, steps=12, global_batch=2,
+              seq_len=32, save_every=4, log_every=12, device="cuda")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ref = train(ckpt_dir=f"{d}/straight", **kw)
+        try:
+            train(ckpt_dir=f"{d}/resumed", preempt_at=8, **kw)
+            raise AssertionError("[train] preempt_at=8 did not exit")
+        except SystemExit as e:
+            if e.code != 17:
+                raise AssertionError(f"[train] preempt exit code {e.code}")
+        res = train(ckpt_dir=f"{d}/resumed", **kw)
+    gap = abs(res["final_loss"] - ref["final_loss"])
+    log(f"[train] gemma-2b smoke on the card: preempted at 8 (exit 17), "
+        f"resumed to 12: final loss {res['final_loss']:.6f} vs straight "
+        f"{ref['final_loss']:.6f}, |diff| {gap:.3e} (tol {RESUME_TOL}; "
+        f"atomics in the embedding backward may move the last bits)")
+    if not gap < RESUME_TOL:
+        raise AssertionError(f"[train] resume differs by {gap}")
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N per token (forward 2 N, backward
+    4 N; N counts the tied embedding once, as the head's product) plus
+    attention's two products over the full S x S scores the plain path
+    computes, 12 L S Hq D per token; remat's recompute is not counted."""
+    per_token = (6 * cfg.param_count()
+                 + 12 * cfg.n_layers * seq * cfg.n_heads * cfg.head_dim)
+    return per_token * batch * seq
+
+
+def phase_train_full(card: str) -> dict[str, int]:
+    """gemma-2b at full width, 20 steps of ``train`` (bf16 compute, remat
+    full, B x S = TRAIN_BATCH x TRAIN_SEQ, seed 0, no checkpoint: f32
+    masters plus m and v would write 30 GB a save), then one more step
+    under ``torch.profiler``.  Returns the kernels' launches across the
+    20 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, OptConfig
+
+    cfg = get_config("gemma-2b")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = ls.launches = 0
+    out = train(arch="gemma-2b", smoke=False, steps=TRAIN_STEPS,
+                global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                peak_lr=TRAIN_LR, ckpt_dir=None, log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    launches = {"flash": fa.launches, "wkv": ls.launches}
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    walls = [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
+    wall = float(np.median(walls))  # steps 2 .. TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    peak_flops = PEAK_FLOPS[torch.bfloat16]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"[train] {cfg.name} full width ({cfg.param_count() / 1e9:.3f}B "
+        f"params, {cfg.n_layers} layers, remat {cfg.remat}, "
+        f"{cfg.compute_dtype}), B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps, peak lr {TRAIN_LR}: losses {losses}")
+    log(f"[train] grad norms {gnorms}")
+    log(f"[train] mean loss of the first 5 steps {first5} and of the last 5 "
+        f"{last5}")
+    log(f"[train] launches across the phase: {launches}")
+    log(f"[train] step wall (median of steps 2-{TRAIN_STEPS}, each ending in "
+        f"a host read) {wall * 1e3:.2f} ms; tokens/s {tokens / wall:.1f}; "
+        f"model FLOPs a step {flops / 1e12:.3f} T (6 N tokens + attention "
+        f"12 L S Hq D tokens, no recompute); model-FLOP share of the dense "
+        f"bf16 peak {peak_flops / 1e12:.0f} TFLOP/s: "
+        f"{flops / wall / peak_flops:.4f} ({card})")
+    log(f"[train] peak allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError("[train] a loss or grad norm is not finite")
+    if not last5 < first5:
+        raise AssertionError(f"[train] loss did not fall: {first5} -> {last5}")
+    if launches != {"flash": 0, "wkv": 0}:
+        raise AssertionError(f"[train] the train path launched {launches}")
+
+    model = LanguageModel(cfg, device="cuda")
+    params = out.pop("params")
+    del out
+    opt = AdamW(OptConfig(peak_lr=TRAIN_LR))
+    state, step = opt.init(params), make_train_step(model, opt)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in TokenDataset(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) / 1e6
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    if events:
+        log(f"[train-trace] one more step under torch.profiler: wall "
+            f"{prof_wall * 1e3:.2f} ms, {len(events)} device events, summed "
+            f"device time {busy * 1e3:.2f} ms: busy {busy / prof_wall:.4f} "
+            f"of that wall, {busy / wall:.4f} of the unprofiled median wall")
+    else:
+        log("[train-trace] the trace held no device time: busy share not "
+            "measured")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"[train-trace] {ms:.3f} ms {name[:110]}")
+    kinds: dict[str, list] = {}
+    for name, ms in by_name.items():
+        kind = next((k for k, keys in TRACE_KINDS if any(
+            key in name for key in keys)), "other")
+        kinds.setdefault(kind, [0.0, 0])
+        kinds[kind][0] += ms
+        kinds[kind][1] += sum(1 for e in events if e.name == name)
+    log("[train-trace] device ms (kernels) by kind: " + ", ".join(
+        f"{k} {ms:.2f} ({n})" for k, (ms, n) in sorted(
+            kinds.items(), key=lambda kv: -kv[1][0])))
+    phase_train_parts(model, opt, params, state, batch)
+    del params, state, m, batch, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_parts(model, opt, params, state, batch) -> None:
+    """One more step cut into its parts, the forward (``train_loss``), the
+    backward (``autograd.grad``) and the optimizer (``opt.update``), each
+    timed twice: on the host up to the end of its enqueueing (no sync in
+    between) and on the card between CUDA events.  A part whose host time
+    exceeds its device time leaves the card waiting for the host."""
+    from repro_torch.utils import tree_leaves, tree_unflatten
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    host = [time.perf_counter()]
+    ev[0].record()
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    total, _ = model.train_loss(params, batch)
+    ev[1].record()
+    host.append(time.perf_counter())
+    grads = torch.autograd.grad(total, leaves)
+    del total
+    ev[2].record()
+    host.append(time.perf_counter())
+    opt.update(tree_unflatten(params, grads), state, params)
+    ev[3].record()
+    host.append(time.perf_counter())
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    parts = ("forward", "backward", "optimizer")
+    # AdamW must read p, g, m, v and write p, m, v once: 28 bytes a parameter
+    opt_bound = 28 * sum(p.numel() for p in leaves) / PEAK_BYTES * 1e3
+    log("[train-parts] one step: " + "; ".join(
+        f"{n} device {ev[i].elapsed_time(ev[i + 1]):.2f} ms, host enqueue "
+        f"{(host[i + 1] - host[i]) * 1e3:.2f} ms" for i, n in enumerate(parts))
+        + f"; step to the last sync {(end - host[0]) * 1e3:.2f} ms; the "
+        f"optimizer's bound (28 bytes a parameter) {opt_bound:.2f} ms")
+
+
 def main() -> None:
     card = phase_env()
     ptxas = phase_build()
@@ -728,6 +976,14 @@ def main() -> None:
     phase_parity_rwkv(model32, params)
     log(f"[mem] {cfg.name} peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, model32, params
+    torch.cuda.empty_cache()
+
+    phase_train_parity()
+    phase_train_resume()
+    train_launches = phase_train_full(card)
+    flash_launches["train"] = train_launches["flash"]
+    wkv_launches["train"] = train_launches["wkv"]
 
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,

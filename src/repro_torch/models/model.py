@@ -1,5 +1,5 @@
-"""LanguageModel: init / prefill / prefill_chunk / decode_step for the
-decoder-only attention and RWKV-6 architectures (port of
+"""LanguageModel: init / train_loss / prefill / prefill_chunk / decode_step
+for the decoder-only attention and RWKV-6 architectures (port of
 ``repro.models.model``).
 
 Parameters are a nested dict of tensors keyed exactly as the JAX pytree
@@ -90,6 +90,23 @@ class LanguageModel:
                    if seg.scanned}
         return {k: walk(v, k, int(k in scanned)) for k, v in params.items()}
 
+    def cast_for_train(self, params: dict) -> dict:
+        """The compute-dtype weights ``train_loss`` reads: JAX's
+        ``_cast_for_compute`` (``repro/models/model.py:140-155``) exactly.
+        Every float leaf whose *stored* rank is >= 2 goes to the compute
+        dtype, so in a scanned segment the stacked vectors (norm scales
+        ``(L, d)``, ``w0``, ``ln_w``, ``mu_*``) are read in bf16 too, and so
+        are ``u`` and ``decay_B`` -- unlike serving (``cast_for_compute``).
+        Nothing is cast when the compute dtype is the parameter dtype.  The
+        casts are differentiable: gradients reach the f32 masters through
+        them."""
+        cdt = torch_dtype(self.cfg.compute_dtype)
+        if cdt == torch_dtype(self.cfg.param_dtype):
+            return params
+        return tree_map(lambda t: t.to(cdt) if (t.is_floating_point()
+                                                and t.ndim >= 2) else t,
+                        params)
+
     # ------------------------------------------------------------- embeddings
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -119,6 +136,42 @@ class LanguageModel:
             c = None if caches is None else caches[f"seg{i}"]
             x, _ = tfm.apply_segment(params[f"seg{i}"], self.cfg, seg, x, c, ctx)
         return x, caches
+
+    # ------------------------------------------------------------------ train
+    def train_loss(self, params: dict,
+                   batch: dict) -> tuple[torch.Tensor, dict]:
+        """Mean next-token loss of ``batch`` (``tokens``, ``targets``: (B, S)
+        int; optional ``weights`` (B, S) f32 and ``positions``), as JAX's
+        ``train_loss`` (``repro/models/model.py:171-200``).  The label logit
+        is a ``gather``, not JAX's one-hot product (the same number: a
+        (B, S, vocab) f32 one-hot would take 2 GB at gemma-2b's width).
+        Attention runs the plain ``attention_core`` and RWKV-6 the chunked
+        form: neither kernel has a backward, in JAX or here.  ``aux`` is 0:
+        the MoE kinds that produce a router loss are not ported yet."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        weights = batch.get("weights")
+        if weights is None:
+            weights = torch.ones(tokens.shape, dtype=torch.float32,
+                                 device=tokens.device)
+        params = self.cast_for_train(params)
+        pos = self._positions(B, S, batch.get("positions"))
+        ctx = ModelCtx(mode="train", positions=pos)
+        x = self._embed(params, tokens)
+        x, _ = self._backbone(params, x, None, ctx)
+        logits = self._head(params, x)
+
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+        nll = (lse - label_logit) * weights
+        denom = torch.clamp(weights.sum(), min=1.0)
+        loss = nll.sum() / denom
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        total = loss + cfg.router_aux_coef * aux
+        metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
+                   "total_loss": total}
+        return total, metrics
 
     # ------------------------------------------------------------------ serve
     def cache_specs(self, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -9,14 +9,19 @@ Layers are grouped into *segments* as in JAX: a maximal run whose cyclic
 super-block repeats >= 2 times is "scanned" -- its weights and caches carry
 a leading ``layers`` axis, exactly the JAX pytree -- and here a Python loop
 over that axis takes the place of ``lax.scan``.  Per-layer slices are views,
-so in-place cache writes land in the stacked tensors.
+so in-place cache writes land in the stacked tensors.  In training each
+layer of a scanned segment may run under activation checkpointing
+(``cfg.remat``), as JAX's ``jax.checkpoint`` around the scan body.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -184,12 +189,50 @@ def apply_superblock(p: dict, cfg: ModelConfig, kinds: tuple[LayerKind, ...],
     return x, caches
 
 
+#: matrix products without batch dims, whose outputs ``remat="dots"`` keeps
+#: (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``); an einsum
+#: over weights reaches ``bmm`` with a batch of 1
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _DOTS or (op is torch.ops.aten.bmm.default
+                       and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(policy: str, fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` under activation checkpointing, as JAX's
+    ``repro/models/transformer.py:306-310``:
+    ``"full"`` keeps nothing inside the layer and reruns it in the backward,
+    ``"dots"`` keeps the outputs of the non-batched matrix products.  The
+    numbers are those of ``fn(x)``."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif policy != "full":
+        raise ValueError(f"remat policy {policy!r}")
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
+
+
 def apply_segment(p: dict, cfg: ModelConfig, seg: Segment, x: torch.Tensor,
                   caches: Any, ctx: ModelCtx):
     if not seg.scanned:
         return apply_superblock(p, cfg, seg.kinds, x, caches, ctx)
+    # one unbind per stacked weight: its backward is one stack of the layers'
+    # gradients, where a view t[i] per layer would add a zero tensor the size
+    # of the whole stack per layer
+    views = tree_map(lambda t: torch.unbind(t, 0), p)
+    remat = ctx.mode == "train" and cfg.remat != "none"
     for i in range(seg.repeats):
-        p_i = tree_map(lambda t: t[i], p)
+        p_i = tree_map(lambda v: v[i], views)
         c_i = None if caches is None else tree_map(lambda t: t[i], caches)
-        x, _ = apply_superblock(p_i, cfg, seg.kinds, x, c_i, ctx)
+        if remat:
+            x = _remat(cfg.remat, lambda x_, p_i=p_i: apply_superblock(
+                p_i, cfg, seg.kinds, x_, None, ctx)[0], x)
+        else:
+            x, _ = apply_superblock(p_i, cfg, seg.kinds, x, c_i, ctx)
     return x, caches

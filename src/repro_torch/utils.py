@@ -28,6 +28,33 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` pairs in JAX's flattening order (dict keys sorted),
+    the path ``/``-joined as ``repro.checkpoint`` keys its arrays."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in tree_flatten(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def tree_leaves(tree: Any) -> list[Any]:
+    """The leaves of ``tree`` in JAX's flattening order."""
+    return [leaf for _, leaf in tree_flatten(tree)]
+
+
+def tree_unflatten(like: Any, leaves: list[Any]) -> Any:
+    """Inverse of ``tree_leaves``: the dict structure of ``like`` holding
+    ``leaves`` in JAX's flattening order."""
+    it = iter(leaves)
+
+    def build(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
 def take_fill(x: torch.Tensor, idx: torch.Tensor, dim: int, fill,
               bound: int | None = None) -> torch.Tensor:
     """``jnp.take(x, idx, axis=dim, mode="fill", fill_value=fill)``: indices

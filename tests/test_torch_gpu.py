@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash attention, the RWKV-6 WKV scan, each of
-its bodies) against their plain versions, on the card.
+its bodies) against their plain versions, on the card; and train steps on
+the card against the same steps on the CPU, which launch neither kernel.
 
 Run on a machine with an NVIDIA card (no JAX needed there):
 
@@ -7,12 +8,19 @@ Run on a machine with an NVIDIA card (no JAX needed there):
 
 Without a card every test skips: the kernel has no CPU mode.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.data import TokenDataset  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import linear_scan as ls  # noqa: E402
+from repro_torch.launch.train import make_train_step, smoke_config  # noqa: E402
+from repro_torch.models import LanguageModel  # noqa: E402
+from repro_torch.optim import AdamW, OptConfig  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 GPU_CASES = [
     # (B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset, out_scale, dtype)
@@ -207,3 +215,55 @@ def test_wkv_chunked_new_shape_adds_no_stream_sync():
     for out, ref in ((y, y_ref), (s_fin, s_ref)):
         scale = max(1.0, float(ref.abs().max()))
         assert float((out - ref).abs().max()) <= 1e-4 * scale
+
+
+def _train(device, cfg, params, steps=3):
+    """``steps`` train steps on ``device``: (losses, params after)."""
+    opt = AdamW(OptConfig(peak_lr=3e-3, warmup_steps=2, decay_steps=10))
+    step = make_train_step(LanguageModel(cfg, device=device), opt)
+    state = opt.init(params)
+    data = TokenDataset(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2)
+    losses = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(i).items()}
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    return losses, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+def test_train_steps_on_card_match_cpu(arch):
+    """Three train steps on the card against the same steps on the CPU
+    (the path the CPU tests hold against JAX), smoke size, f32 compute:
+    losses within 1e-4 relative, every parameter after them within
+    1e-4 x max(1, max |p|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = smoke_config(arch).scaled(compute_dtype="float32")
+    p_cpu = LanguageModel(cfg, device="cpu").init(0)
+    p_gpu = tree_map(lambda t: t.to("cuda", copy=True), p_cpu)
+    l_cpu, p_cpu = _train("cpu", cfg, p_cpu)
+    l_gpu, p_gpu = _train("cuda", cfg, p_gpu)
+    for a, b in zip(l_gpu, l_cpu):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for a, b in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)):
+        a, b = a.detach().cpu(), b.detach()
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+def test_train_step_on_card_launches_no_kernel(arch):
+    """A train step (bf16 compute, remat full) on the card reaches neither
+    hand-written kernel: neither has a backward, in JAX or here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = smoke_config(arch).scaled(remat="full")
+    params = LanguageModel(cfg, device="cuda").init(0)
+    before = fa.launches, ls.launches
+    losses, _ = _train("cuda", cfg, params, steps=2)
+    torch.cuda.synchronize()
+    assert (fa.launches, ls.launches) == before
+    assert all(math.isfinite(x) for x in losses)

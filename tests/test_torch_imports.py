@@ -43,3 +43,13 @@ def test_serving_entry_point_loads_without_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=ROOT, timeout=120)
+
+
+def test_train_entry_point_loads_without_jax():
+    code = ("import sys, repro_torch.launch.train; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=ROOT, timeout=120)
