@@ -43,17 +43,37 @@ back to the CPU):
 7. parity   -- rwkv6 in f32 compute: full-prefill first-token logits (WKV
                kernel) against token-by-token decode (the plain per-step
                recurrence), and greedy agreement of the two engines;
-8. train    -- the serving models freed: gemma-2b and rwkv6-1.6b smoke
-               configs, 3 train steps on the card against the CPU in f32;
-               preempt at step 8 and resume to 12 on the card against a
-               straight run; gemma-2b at full width (bf16, remat full,
-               B 2 x S 1024, seed 0), 20 steps of ``train``: finite and
-               falling loss, no flash or WKV launch, the step wall,
+8. serve    -- h2o-danube-1.8b (24 SWA layers, window 4096, GQA 32/8 at
+               head_dim 80: the flash kernel's mma.sync body with a window),
+               recurrentgemma-9b (12 x (RG-LRU, RG-LRU, SWA) + 2 RG-LRU,
+               window 2048, MQA at head_dim 256: the wgmma body with a
+               window) and deepseek-7b (30 MHA layers, head_dim 128: the
+               wgmma body), one after the other, each at full width with
+               seed-0 weights (RG-LRU's zero-init conv drawn from a seeded
+               normal) and freed before the next.  First the f32 parity
+               phases on the f32 masters: for the two sliding-window
+               models a 4500-token prompt, longer than both windows,
+               through the flash kernel against the plain banded path;
+               for recurrentgemma-9b also full prefill (the doubling scan)
+               against token-by-token decode (the per-step recurrence); for
+               deepseek-7b the gemma-2b phase 5.  Then the bf16 copy is
+               made and the masters' matrices dropped, and the trace (the
+               4500-token prompt added for the sliding-window models)
+               goes through both engines, with flash launches read
+               around each: one per attention layer per full prefill in
+               the dense engine, none in the paged one;
+9. train    -- the serving models freed: gemma-2b, rwkv6-1.6b,
+               h2o-danube-1.8b and recurrentgemma-9b smoke configs, 3 train
+               steps on the card against the CPU in f32; preempt at step 8
+               and resume to 12 on the card against a straight run;
+               gemma-2b, then h2o-danube-1.8b, at full width (bf16, remat
+               full, B 2 x S 1024, seed 0), 20 steps of ``train``: finite
+               and falling loss, no flash or WKV launch, the step wall,
                tokens/s, model-FLOP share, peak memory; then one step
                under ``torch.profiler`` (busy share, top kernels, time by
                kernel kind) and one cut into forward, backward and
                optimizer (host enqueue against device time);
-9. the kernels JSON line, then the card line, then the result line.
+10. the kernels JSON line, then the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository.
@@ -106,6 +126,11 @@ KERNEL_CASES = [
      torch.bfloat16),
     ("f32", 1, 512, 512, 8, 1, 256, 256, True, 0, 0, 1.0, False,
      torch.float32),
+    # the sliding-window models' full prefill of LONG_PROMPT tokens
+    ("danube_swa_prefill", 1, 4500, 4500, 32, 8, 80, 80, True, 4096, 0, 1.0,
+     False, torch.bfloat16),
+    ("rgemma_swa_prefill", 1, 4500, 4500, 16, 1, 256, 256, True, 2048, 0,
+     1.0, False, torch.bfloat16),
 ]
 # (name, B, S, H, N, w_hi); the first is the serving path's (rwkv6-1.6b
 # prefill), then a paged chunk round (8 slots x 64 tokens), an odd length,
@@ -125,6 +150,16 @@ WKV_CASES = [
 # cases where the WKV scan's step body is timed beside the chunked one
 PREV_WKV_BODY_CASES = ("rwkv6_prefill", "chunk_round")
 PROMPT_LENS = [97, 1000, 351, 742, 180, 563]
+# the sliding-window models' trace adds one prompt longer than both windows
+# (4096, 2048): the SWA rings wrap and the plain path takes its KV band
+LONG_PROMPT = 4500
+LONG_MAX_LEN = 4608  # prompt + MAX_NEW + 1, rounded up to 16-token pages
+# the models served after rwkv6-1.6b, in order, each with its f32 parity
+# phases first (``phase_model``)
+SERVE_MODELS = ("h2o-danube-1.8b", "recurrentgemma-9b", "deepseek-7b")
+# RG-LRU's conv weights, drawn at this scale x a seeded normal: the config's
+# init sets them to zero (as JAX's), which zeros every RG-LRU output
+CONV_SCALE = 0.5
 # cases where the wgmma body replaces the mma.sync body, which is timed
 # beside it in the same run (``_body="mma"``)
 PREV_BODY_CASES = ("gemma_prefill", "deepseek7b_prefill")
@@ -143,9 +178,15 @@ PARITY_TOL = 1e-3  # f32 logits of magnitude ~1; only summation order differs
 TRAIN_TOL = 1e-4
 # resumed against straight, as tests/test_train_resume.py bounds it
 RESUME_TOL = 1e-3
-# the full-width train phase: gemma-2b, 2 x 1024 tokens a step; peak lr
-# OptConfig's default (train()'s 3e-3 is for the smoke configs)
+# the full-width train phases (TRAIN_FULL), 2 x 1024 tokens a step; peak lr
+# OptConfig's default (train()'s 3e-3 is for the smoke configs).
+# recurrentgemma-9b does not train at full width: 16 bytes a parameter is
+# 150 GB
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
+TRAIN_FULL = ("gemma-2b", "h2o-danube-1.8b")
+# smoke configs trained on the card against the CPU
+TRAIN_PARITY = ("gemma-2b", "rwkv6-1.6b", "h2o-danube-1.8b",
+                "recurrentgemma-9b")
 # kernel kinds of the profiled train step, by substrings of their names
 TRACE_KINDS = (("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
                ("reduce", ("reduce_kernel",)),
@@ -303,8 +344,20 @@ def _bound(case, q, k, v, out, res) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _sdpa_backend(kernels: dict) -> str:
+    """Which SDPA backend ran, from the names of the kernels it launched."""
+    names = " ".join(kernels).lower()
+    for key, backend in (("cudnn", "cudnn"), ("fmha", "efficient"),
+                         ("efficient", "efficient"), ("flash", "flash")):
+        if key in names:
+            return backend
+    return "math" if kernels else "not measured"
+
+
 def _library_call(case, q, k, v):
-    """One PyTorch call computing the same function (no epilogue), or None."""
+    """One PyTorch call computing the same function (no epilogue), or None.
+    With a window or an offset SDPA gets the explicit (Sq, Skv) band mask,
+    and picks a backend that takes one (``_sdpa_backend`` names it)."""
     import torch.nn.functional as F
 
     _, _, Sq, Skv, Hq, Hkv, _, _, causal, window, q_offset, out_scale, \
@@ -373,7 +426,9 @@ def phase_kernels() -> list[dict]:
                            reps=5)
         lib = _library_call(case, q, k, v)
         library_ms = cuda_ms(lib) if lib is not None else None
-        library_device_ms = device_ms(lib) if lib is not None else None
+        lib_kernels = {}
+        library_device_ms = (device_ms(lib, by_kernel=lib_kernels)
+                             if lib is not None else None)
         bound_ms, bound_by = _bound(case, q, k, v, out, res)
         row = dict(case=name, shape=[B, Sq, Skv, Hq, Hkv, D, Dv],
                    dtype=str(dt).replace("torch.", ""), causal=causal,
@@ -386,6 +441,9 @@ def phase_kernels() -> list[dict]:
                    ms=ms, device_ms=dev_ms, device_ms_by_kernel=dev_kernels,
                    plain_ms=plain_ms,
                    library_ms=library_ms, library_device_ms=library_device_ms,
+                   library_backend=(_sdpa_backend(lib_kernels)
+                                    if lib is not None else None),
+                   library_kernels=sorted(lib_kernels),
                    bound_ms=bound_ms, bound_by=bound_by, **prev)
         log(f"[kernels] {json.dumps(row)}")
         results.append(row)
@@ -473,24 +531,45 @@ def phase_wkv_kernel() -> list[dict]:
     return results
 
 
-def _prompts(vocab: int) -> list[list[int]]:
+def _prompts(vocab: int, long: bool = False) -> list[list[int]]:
+    """The trace's prompts (PROMPT_LENS), then LONG_PROMPT if ``long``."""
     rng = np.random.RandomState(0)
-    return [rng.randint(0, vocab, n).tolist() for n in PROMPT_LENS]
+    lens = PROMPT_LENS + ([LONG_PROMPT] if long else [])
+    return [rng.randint(0, vocab, n).tolist() for n in lens]
 
 
-def phase_serve(model, params, kernel, paged_launches) -> dict:
-    """Serve the prompts through both engines; ``kernel`` is the module of
-    the path's kernel wrapper, whose launch count is set to 0 just before
-    each engine runs and read just after.  The dense engine runs one full
-    prefill per prompt; ``paged_launches(stats)`` is the paged engine's
-    expected count."""
+def _attn_layers(cfg) -> int:
+    return sum(t in ("attn", "swa") for t in cfg.layer_types())
+
+
+def _draw_conv(params: dict, seed: int = 0) -> None:
+    """RG-LRU's ``conv_w`` leaves, in place, from CONV_SCALE x a seeded
+    normal (the init's zeros would zero every RG-LRU output and state)."""
+    from repro_torch.utils import tree_flatten
+
+    for path, t in tree_flatten(params):
+        if path.endswith("conv_w"):
+            g = torch.Generator(device=t.device).manual_seed(seed)
+            t.copy_(CONV_SCALE * torch.randn(t.shape, generator=g,
+                                             device=t.device))
+            seed += 1
+
+
+def phase_serve(model, params, kernel, per_prefill, paged_launches,
+                prompts=None, max_len=1024) -> dict:
+    """Serve the prompts (default: the trace's) through both engines;
+    ``kernel`` is the module of the path's kernel wrapper, whose launch
+    count is set to 0 just before each engine runs and read just after.
+    The dense engine runs one full prefill per prompt, ``per_prefill``
+    launches each; ``paged_launches(stats)`` is the paged engine's expected
+    count."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.launch.serve import (ContinuousBatcher,
                                           PagedServingEngine, Request)
 
     cfg = model.cfg
-    prompts = _prompts(cfg.vocab_size)
+    prompts = prompts or _prompts(cfg.vocab_size)
     name = kernel.__name__.rsplit(".", 1)[-1]
 
     def reqs():
@@ -501,7 +580,7 @@ def phase_serve(model, params, kernel, paged_launches) -> dict:
         fa.launches = ls.launches = 0
 
     dense_reqs = reqs()
-    batcher = ContinuousBatcher(model, params, n_slots=4, max_len=1024)
+    batcher = ContinuousBatcher(model, params, n_slots=4, max_len=max_len)
     reset()
     stats = batcher.run(dense_reqs)
     torch.cuda.synchronize()
@@ -510,7 +589,7 @@ def phase_serve(model, params, kernel, paged_launches) -> dict:
     log(f"[serve] {cfg.name} dense: wall_s {stats['wall_s']:.3f} tok/s "
         f"{stats['tok_per_s']:.2f} host_syncs {stats['host_syncs']} "
         f"{name} launches {launches['dense']}")
-    expect = cfg.n_layers * len(prompts)
+    expect = per_prefill * len(prompts)
     if not all(r.done and not r.rejected for r in dense_reqs):
         raise AssertionError("[serve] dense: a request did not finish")
     if stats["tokens"] != len(prompts) * MAX_NEW:
@@ -520,7 +599,7 @@ def phase_serve(model, params, kernel, paged_launches) -> dict:
                              f"{launches['dense']} != {expect} (others {others})")
 
     paged_reqs = reqs()
-    eng = PagedServingEngine(model, params, n_slots=8, max_len=1024,
+    eng = PagedServingEngine(model, params, n_slots=8, max_len=max_len,
                              page_size=16, chunk_max=64, drain_every=8)
     reset()
     pstats = eng.run(paged_reqs)
@@ -616,36 +695,124 @@ def phase_parity(model32, params) -> None:
     _engines_agree(model32, params, prompts)
 
 
-def phase_parity_rwkv(model32, params) -> None:
-    """Full prefill (the WKV kernel) against the prompt fed token by token
-    through ``decode_step`` (the plain per-step recurrence, no kernel)."""
-    from repro_torch.kernels import linear_scan as ls
-
-    prompts = _prompts(model32.cfg.vocab_size)[:2]
+def phase_parity_decode(model32, params, prompts, kernel,
+                        per_prefill) -> None:
+    """Full prefill (``per_prefill`` launches of ``kernel``, the module of
+    the path's kernel wrapper; rwkv6's WKV scan, or recurrentgemma's flash
+    attention beside the RG-LRU doubling scan) against the prompt fed token
+    by token through ``decode_step`` (the plain per-step recurrences, no
+    kernel)."""
+    name = model32.cfg.name
     for i, p in enumerate(prompts):
         tokens = torch.tensor([p], dtype=torch.int32, device="cuda")
         cache = model32.init_cache(1, 1024, dtype=torch.float32)
-        before = ls.launches
+        before = kernel.launches
         full, _ = model32.prefill(params, {"tokens": tokens}, cache)
-        if ls.launches - before != model32.cfg.n_layers:
-            raise AssertionError("[parity] rwkv6 prefill missed the kernel")
+        if kernel.launches - before != per_prefill:
+            raise AssertionError(f"[parity] {name} prefill missed the kernel")
         cache = model32.init_cache(1, 1024, dtype=torch.float32)
-        before = ls.launches
+        before = kernel.launches
         for t in range(len(p)):
             step, cache = model32.decode_step(
                 params, tokens[:, t:t + 1], cache,
                 torch.full((1,), t, dtype=torch.int32, device="cuda"))
-        if ls.launches != before:
-            raise AssertionError("[parity] rwkv6 decode launched the kernel")
+        if kernel.launches != before:
+            raise AssertionError(f"[parity] {name} decode launched the kernel")
         err = float((full - step).abs().max())
         scale = float(full.abs().max())
-        log(f"[parity] rwkv6 prompt {i} (len {len(p)}): max |prefill - "
+        log(f"[parity] {name} prompt {i} (len {len(p)}): max |prefill - "
             f"decode| logits {err:.3e} (max |logit| {scale:.3f}, tol "
             f"{PARITY_TOL})")
         if not bool(torch.isfinite(full).all()) or err > PARITY_TOL:
-            raise AssertionError(f"[parity] rwkv6 prompt {i}: {err} > "
+            raise AssertionError(f"[parity] {name} prompt {i}: {err} > "
                                  f"{PARITY_TOL}")
-    _engines_agree(model32, params, prompts)
+
+
+def phase_parity_long(model32, params, prompt) -> None:
+    """A prompt longer than window + q-chunk, f32: first-token logits of
+    full prefill through the flash kernel against full prefill with the
+    positions given, whose plain attention slices a KV band per q-chunk
+    (``_attention_expanded``); both wrap the SWA rings."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import _pick_chunk
+
+    cfg = model32.cfg
+    S = len(prompt)
+    chunk = _pick_chunk(S)
+    if not S > cfg.window + chunk:
+        raise AssertionError(f"[parity] {S} tokens do not take the band")
+    tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    cache = model32.init_cache(1, LONG_MAX_LEN, dtype=torch.float32)
+    before = fa.launches
+    flash, _ = model32.prefill(params, {"tokens": tokens}, cache)
+    if fa.launches - before != _attn_layers(cfg):
+        raise AssertionError(f"[parity] {cfg.name}: flash launches "
+                             f"{fa.launches - before}")
+    cache = model32.init_cache(1, LONG_MAX_LEN, dtype=torch.float32)
+    before = fa.launches
+    t0 = time.perf_counter()
+    plain, _ = model32.prefill(params, {"tokens": tokens, "positions":
+                                        model32._positions(1, S, None)}, cache)
+    torch.cuda.synchronize()
+    if fa.launches != before:
+        raise AssertionError("[parity] the plain path launched flash")
+    err = float((flash - plain).abs().max())
+    scale = float(flash.abs().max())
+    log(f"[parity] {cfg.name} prompt of {S} tokens (window {cfg.window}, "
+        f"q-chunk {chunk}, banded plain path {time.perf_counter() - t0:.1f}s):"
+        f" max |flash - plain| first-token logits {err:.3e} (max |logit| "
+        f"{scale:.3f}, tol {PARITY_TOL})")
+    if not bool(torch.isfinite(flash).all()) or err > PARITY_TOL:
+        raise AssertionError(f"[parity] {cfg.name}: {err} > {PARITY_TOL}")
+
+
+def phase_model(arch: str) -> dict[str, int]:
+    """One model of SERVE_MODELS at full width: the f32 parity phases on the
+    f32 masters, then the bf16 copy, the masters' matrices dropped (so the
+    card never holds the masters, an f32 forward and the copy at once), and
+    the trace through both engines.  Returns the flash launches by
+    engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import LanguageModel
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model = LanguageModel(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    _draw_conv(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[serve] {cfg.name} full width: {n_params / 1e9:.3f}B params held "
+        f"({cfg.param_count() / 1e9:.3f}B by the config's count), "
+        f"{cfg.n_layers} layers ({_attn_layers(cfg)} attention), init "
+        f"{time.perf_counter() - t0:.1f}s")
+    long = bool(cfg.window)
+    prompts = _prompts(cfg.vocab_size, long=long)
+    model32 = LanguageModel(cfg.scaled(compute_dtype="float32"), device="cuda")
+    if long:
+        phase_parity_long(model32, params, prompts[-1])
+    else:
+        phase_parity(model32, params)
+    if "rglru" in cfg.layer_types():
+        phase_parity_decode(model32, params, [prompts[2]], fa,
+                            _attn_layers(cfg))
+    log(f"[mem] {cfg.name} f32 phases: peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    cast = model.cast_for_compute(params)
+    del model32, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = phase_serve(model, cast, fa, _attn_layers(cfg),
+                           lambda stats: 0, prompts,
+                           LONG_MAX_LEN if long else 1024)
+    log(f"[mem] {cfg.name} serving: peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, cast
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _kernel_entry(name, source, replaces, launches, rows, library, ptxas,
@@ -727,10 +894,11 @@ def phase_train_parity() -> None:
     from repro_torch.models import LanguageModel
     from repro_torch.utils import tree_leaves, tree_map
 
-    for arch in ("gemma-2b", "rwkv6-1.6b"):
+    for arch in TRAIN_PARITY:
         cfg = smoke_config(arch).scaled(compute_dtype="float32")
         cpu = LanguageModel(cfg, device="cpu")
         p_cpu = cpu.init(0)
+        _draw_conv(p_cpu)
         p_gpu = tree_map(lambda t: t.to("cuda", copy=True), p_cpu)
         data = TokenDataset(vocab_size=cfg.vocab_size, seq_len=64,
                             global_batch=2)
@@ -789,10 +957,10 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     return per_token * batch * seq
 
 
-def phase_train_full(card: str) -> dict[str, int]:
-    """gemma-2b at full width, 20 steps of ``train`` (bf16 compute, remat
-    full, B x S = TRAIN_BATCH x TRAIN_SEQ, seed 0, no checkpoint: f32
-    masters plus m and v would write 30 GB a save), then one more step
+def phase_train_full(card: str, arch: str) -> dict[str, int]:
+    """``arch`` at full width, 20 steps of ``train`` (bf16 compute, remat
+    full, B x S = TRAIN_BATCH x TRAIN_SEQ, seed 0, no checkpoint: gemma-2b's
+    f32 masters plus m and v would write 30 GB a save), then one more step
     under ``torch.profiler``.  Returns the kernels' launches across the
     20 steps."""
     from torch.profiler import ProfilerActivity, profile
@@ -805,10 +973,10 @@ def phase_train_full(card: str) -> dict[str, int]:
     from repro_torch.models import LanguageModel
     from repro_torch.optim import AdamW, OptConfig
 
-    cfg = get_config("gemma-2b")
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     fa.launches = ls.launches = 0
-    out = train(arch="gemma-2b", smoke=False, steps=TRAIN_STEPS,
+    out = train(arch=arch, smoke=False, steps=TRAIN_STEPS,
                 global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                 peak_lr=TRAIN_LR, ckpt_dir=None, log_every=1, device="cuda")
     torch.cuda.synchronize()
@@ -937,6 +1105,7 @@ def main() -> None:
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.models import LanguageModel
 
+    flash_launches, wkv_launches = {}, {}
     cfg = get_config("gemma-2b")
     model = LanguageModel(cfg, device="cuda")
     t0 = time.perf_counter()
@@ -945,7 +1114,9 @@ def main() -> None:
     log(f"[serve] {cfg.name} full width: {cfg.param_count() / 1e9:.3f}B params, "
         f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s")
     cast = model.cast_for_compute(params)
-    flash_launches = phase_serve(model, cast, fa, lambda stats: 0)
+    for engine, n in phase_serve(model, cast, fa, cfg.n_layers,
+                                 lambda stats: 0).items():
+        flash_launches[f"{cfg.name} {engine}"] = n
     trace_ms = phase_trace(model, cast, FLASH_KERNELS)
     phase_bf16_gap(model, cast)
     del cast
@@ -966,24 +1137,33 @@ def main() -> None:
     log(f"[serve] {cfg.name} full width: {cfg.param_count() / 1e9:.3f}B params, "
         f"{cfg.n_layers} layers, init {time.perf_counter() - t0:.1f}s")
     cast = model.cast_for_compute(params)
-    wkv_launches = phase_serve(model, cast, ls,
-                               lambda stats: cfg.n_layers * stats["prefill_rounds"])
+    for engine, n in phase_serve(
+            model, cast, ls, cfg.n_layers,
+            lambda stats: cfg.n_layers * stats["prefill_rounds"]).items():
+        wkv_launches[f"{cfg.name} {engine}"] = n
     wkv_trace_ms = phase_trace(model, cast, WKV_KERNELS)
     phase_bf16_gap(model, cast)
     del cast
     torch.cuda.empty_cache()
     model32 = LanguageModel(cfg.scaled(compute_dtype="float32"), device="cuda")
-    phase_parity_rwkv(model32, params)
+    phase_parity_decode(model32, params, _prompts(cfg.vocab_size)[:2], ls,
+                        cfg.n_layers)
+    _engines_agree(model32, params, _prompts(cfg.vocab_size)[:2])
     log(f"[mem] {cfg.name} peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, model32, params
     torch.cuda.empty_cache()
 
+    for arch in SERVE_MODELS:
+        for engine, n in phase_model(arch).items():
+            flash_launches[f"{arch} {engine}"] = n
+
     phase_train_parity()
     phase_train_resume()
-    train_launches = phase_train_full(card)
-    flash_launches["train"] = train_launches["flash"]
-    wkv_launches["train"] = train_launches["wkv"]
+    for arch in TRAIN_FULL:
+        train_launches = phase_train_full(card, arch)
+        flash_launches[f"train {arch}"] = train_launches["flash"]
+        wkv_launches[f"train {arch}"] = train_launches["wkv"]
 
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,

@@ -10,4 +10,6 @@ from repro_torch.configs import (  # noqa: F401
     gemma_2b,
     deepseek_7b,
     rwkv6_1_6b,
+    h2o_danube_1_8b,
+    recurrentgemma_9b,
 )

@@ -1,6 +1,6 @@
 """LanguageModel: init / train_loss / prefill / prefill_chunk / decode_step
-for the decoder-only attention and RWKV-6 architectures (port of
-``repro.models.model``).
+for the decoder-only attention, RG-LRU hybrid and RWKV-6 architectures
+(port of ``repro.models.model``).
 
 Parameters are a nested dict of tensors keyed exactly as the JAX pytree
 (scanned segments keep their leading ``layers`` axis), so
@@ -24,8 +24,9 @@ from repro_torch.utils import Spec, tree_map
 
 #: matrices that JAX reads in f32 at every use, never in the compute dtype:
 #: RWKV-6's bonus ``u`` and decay projection ``decay_B``
-#: (``repro/models/recurrent.py:328, 336``)
-F32_AT_USE = frozenset({"u", "decay_B"})
+#: (``repro/models/recurrent.py:328, 336``) and RG-LRU's conv weights
+#: ``conv_w`` (``recurrent.py:104, 128, 132``)
+F32_AT_USE = frozenset({"u", "decay_B", "conv_w"})
 
 
 class LanguageModel:
@@ -75,7 +76,8 @@ class LanguageModel:
         weights in f32, and casts the token-shift mixes at use, as the port
         does.  Casting a weight once gives the bits that casting it at every
         use gives, so no number changes, and the f32 masters (10 GB for
-        gemma-2b) are not re-read on every step."""
+        gemma-2b) are not re-read on every step.  The vectors and
+        ``F32_AT_USE`` leaves of the copy are the masters' own tensors."""
         cdt = torch_dtype(self.cfg.compute_dtype)
 
         def walk(node: Any, name: str, lead: int) -> Any:
@@ -145,8 +147,9 @@ class LanguageModel:
         ``train_loss`` (``repro/models/model.py:171-200``).  The label logit
         is a ``gather``, not JAX's one-hot product (the same number: a
         (B, S, vocab) f32 one-hot would take 2 GB at gemma-2b's width).
-        Attention runs the plain ``attention_core`` and RWKV-6 the chunked
-        form: neither kernel has a backward, in JAX or here.  ``aux`` is 0:
+        Attention runs the plain ``attention_core``, RWKV-6 the chunked
+        form and RG-LRU its doubling scan: neither kernel has a backward,
+        in JAX or here.  ``aux`` is 0:
         the MoE kinds that produce a router loss are not ported yet."""
         cfg = self.cfg
         tokens = batch["tokens"]

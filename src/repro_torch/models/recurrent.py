@@ -1,8 +1,17 @@
-"""RWKV-6 (Finch [arXiv:2404.05892]): time mix and channel mix.
+"""Recurrent blocks: RG-LRU (Griffin [arXiv:2402.19427]) and RWKV-6 (Finch
+[arXiv:2404.05892]).
 
-Port of the RWKV-6 half of ``repro.models.recurrent``; the RG-LRU half
-(recurrentgemma) is a later slice.  The WKV recurrence has three forms, as
-in JAX, and each mode takes the one JAX takes:
+Port of ``repro.models.recurrent``.  The RG-LRU recurrence
+``h_t = a_t h_{t-1} + b_t`` has two forms, each taken where JAX takes its
+counterpart:
+
+* the per-step update: decode;
+* ``rglru_scan``, a log-depth doubling scan over ``(a, b)`` in plain
+  PyTorch (JAX's ``lax.associative_scan``; no Pallas kernel runs here):
+  train, prefill and chunked prefill.
+
+The WKV recurrence has three forms, as in JAX, and each mode takes the one
+JAX takes:
 
 * ``wkv_recurrent``, the per-step scan: decode;
 * ``wkv_chunked``, the chunked-parallel form (intra-chunk attention-like
@@ -11,10 +20,11 @@ in JAX, and each mode takes the one JAX takes:
 * the hand-written CUDA kernel behind ``kops.linear_scan``: prefill and
   chunked prefill.
 
-Caches are updated in place, as everywhere in the port: the time mix writes
-the cache's ``S`` and ``x_tm`` with ``copy_`` after reading them, the channel
-mix writes ``x_cm``.  In decode, an ``active`` mask keeps an inactive slot's
-state bit for bit.
+Caches are updated in place, as everywhere in the port: RG-LRU writes its
+``h`` and ``conv`` states, the time mix writes the cache's ``S`` and
+``x_tm`` with ``copy_`` after reading them, the channel mix writes
+``x_cm``.  In decode, an ``active`` mask keeps an inactive slot's state bit
+for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +36,157 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import wkv_ref as wkv_recurrent
 from repro_torch.models.layers import dense_init, torch_dtype
 from repro_torch.utils import Spec
+
+RG_LRU_C = 8.0  # Griffin's fixed gate exponent
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block
+# ---------------------------------------------------------------------------
+
+
+def init_rglru(gen: torch.Generator | None, cfg: ModelConfig, *,
+               stack: int = 0, device: torch.device | str = "cuda") -> dict:
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    dt, tdt = cfg.param_dtype, torch_dtype(cfg.param_dtype)
+    lead = (stack,) if stack else ()
+    kw = dict(stack=stack, device=device)
+
+    def zeros(shape):
+        return torch.zeros(lead + shape, dtype=tdt, device=device)
+
+    # Lambda init so a = exp(-c*softplus(lam)) ~ U[0.9, 0.999]  (Griffin A.2)
+    a0 = torch.empty(lead + (w,), dtype=torch.float32, device=device)
+    a0.uniform_(0.9, 0.999, generator=gen)
+    lam = torch.log(torch.expm1(-torch.log(a0) / RG_LRU_C))
+    return {
+        "w_y": dense_init(gen, (d, w), 1, dt, **kw),
+        "w_x": dense_init(gen, (d, w), 1, dt, **kw),
+        "conv_w": zeros((cfg.conv_width, w)),
+        "conv_b": zeros((w,)),
+        "w_a": dense_init(gen, (w, w), 1, dt, **kw),
+        "b_a": zeros((w,)),
+        "w_i": dense_init(gen, (w, w), 1, dt, **kw),
+        "b_i": zeros((w,)),
+        "lam": lam,
+        "w_o": dense_init(gen, (w, d), 1, dt, **kw),
+    }
+
+
+def rglru_state_specs(batch: int, cfg: ModelConfig) -> dict:
+    w = cfg.lru_width or cfg.d_model
+    f32 = torch.float32
+    return {
+        "h": Spec((batch, w), f32, ("batch", "lru_width")),
+        "conv": Spec((batch, cfg.conv_width - 1, w), f32,
+                     ("batch", None, "lru_width")),
+    }
+
+
+def make_rglru_state(batch: int, cfg: ModelConfig,
+                     device: torch.device | str = "cuda") -> dict:
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in rglru_state_specs(batch, cfg).items()}
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds (width is tiny)."""
+    cw, S = w.shape[0], u.shape[1]
+    out = u * w[-1]
+    for i in range(1, cw):
+        shifted = F.pad(u, (0, 0, i, 0))[:, :S]
+        out = out + shifted * w[-1 - i]
+    return out + b
+
+
+def _rg_gates(p: dict, cfg: ModelConfig, u: torch.Tensor):
+    """(log_a, gated), f32, from ``u`` in the compute dtype: the gate
+    products run in that dtype, ``b_a``, ``b_i`` and ``lam`` are read in
+    f32."""
+    r = torch.sigmoid((u @ p["w_a"].to(u.dtype)).float() + p["b_a"].float())
+    i = torch.sigmoid((u @ p["w_i"].to(u.dtype)).float() + p["b_i"].float())
+    log_a = -RG_LRU_C * F.softplus(p["lam"].float()) * r
+    mult = torch.sqrt(-torch.expm1(2.0 * log_a))
+    gated = u.float() * i * mult
+    return log_a, gated
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of ``h_t = a_t h_{t-1} + b_t`` from ``h_{-1} = 0``
+    along dim 1: ``(a_cum, h)`` with ``a_cum_t = prod_{s<=t} a_s``.
+
+    Hillis-Steele doubling, ceil(log2 S) steps of JAX's associative binop
+    ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)``: each step combines every
+    element with the one ``d`` back (an identity ``(1, 0)`` before the
+    start).  Only products of ``a`` in (0, 1]: nothing is divided by a
+    cumulative product, and ``a = exp(log_a)`` with ``log_a <= 0`` is the
+    only exp.  Out of place, so autograd takes it as it is."""
+    d, S = 1, a.shape[1]
+    while d < S:
+        b = b + a * F.pad(b[:, :-d], (0, 0, d, 0))
+        a = a * F.pad(a[:, :-d], (0, 0, d, 0), value=1.0)
+        d *= 2
+    return a, b
+
+
+def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                state: dict | None, mode: str,
+                active: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, dict | None]:
+    """``mode``: train (no state), prefill, chunk_prefill (continues
+    ``state``) or decode (one token; ``active`` keeps an inactive slot's
+    state bit for bit).  ``conv_w`` and ``conv_b`` are read in f32 at every
+    use, the scan runs in f32, and ``h`` is cast to the compute dtype
+    before ``w_o``."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    cw = cfg.conv_width
+    y_gate = F.gelu(x @ p["w_y"].to(cdt), approximate="tanh")
+    u_pre = x @ p["w_x"].to(cdt)
+    w_c, b_c = p["conv_w"].float(), p["conv_b"].float()
+
+    if mode == "decode":
+        conv_cache = state["conv"]  # (B, cw-1, w) holds u_{t-cw+1..t-1}
+        u = (u_pre[:, 0].float() * w_c[-1]
+             + torch.einsum("bcw,cw->bw", conv_cache, w_c[:-1]) + b_c)
+        log_a, gated = _rg_gates(p, cfg, u[:, None, :].to(cdt))
+        h = torch.exp(log_a[:, 0]) * state["h"] + gated[:, 0]
+        conv_new = torch.cat([conv_cache[:, 1:], u_pre.float()], dim=1)
+        if active is not None:  # inactive slots keep their state verbatim
+            h = torch.where(active[:, None], h, state["h"])
+            conv_new = torch.where(active[:, None, None], conv_new, conv_cache)
+        state["h"].copy_(h)
+        state["conv"].copy_(conv_new)
+        return (y_gate * h[:, None, :].to(cdt)) @ p["w_o"].to(cdt), state
+
+    u_hist = u_pre.float()
+    if mode == "chunk_prefill":
+        # carry the causal-conv window across chunks: prepend the cached
+        # u-history, convolve, then drop the history rows (a fresh state is
+        # zeros, which is the conv's own zero padding)
+        u_hist = torch.cat([state["conv"], u_hist], dim=1)
+        u = _causal_conv(u_hist, w_c, b_c)[:, cw - 1:].to(cdt)
+    else:
+        u = _causal_conv(u_hist, w_c, b_c).to(cdt)
+    log_a, gated = _rg_gates(p, cfg, u)
+    a_cum, h = rglru_scan(torch.exp(log_a), gated)
+    if mode == "chunk_prefill":
+        h = h + a_cum * state["h"][:, None, :]
+
+    if state is not None and mode in ("prefill", "chunk_prefill"):
+        # the last cw-1 rows of the pre-conv history; a prompt shorter than
+        # that is left-padded with zeros, the conv's implicit padding (JAX
+        # keeps the short history, which no (B, cw-1, w) slot can hold)
+        tail = u_hist[:, -(cw - 1):]
+        state["conv"].copy_(F.pad(tail, (0, 0, cw - 1 - tail.shape[1], 0)))
+        state["h"].copy_(h[:, -1])
+    return (y_gate * h.to(cdt)) @ p["w_o"].to(cdt), state
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch)
+# ---------------------------------------------------------------------------
 
 _N_MIX = 5  # w, k, v, r, g ddlerp streams
 

@@ -1,9 +1,9 @@
 """Block composition: per-layer kinds -> segments.
 
 Port of ``repro.models.transformer`` for attention layers (``attn``/``swa``)
-with a dense MLP and for RWKV-6 layers (``rwkv6``: time mix, then channel
-mix); MoE, MLA, RG-LRU and cross-attention kinds are later slices and raise
-``NotImplementedError``.
+and RG-LRU layers (``rglru``), each followed by a dense MLP, and for RWKV-6
+layers (``rwkv6``: time mix, then channel mix); MoE, MLA and
+cross-attention kinds are later slices and raise ``NotImplementedError``.
 
 Layers are grouped into *segments* as in JAX: a maximal run whose cyclic
 super-block repeats >= 2 times is "scanned" -- its weights and caches carry
@@ -71,7 +71,7 @@ def plan_segments(cfg: ModelConfig, kinds: list[LayerKind]) -> list[Segment]:
 
 def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
     t, is_moe = kind
-    if t not in ("attn", "swa", "rwkv6") or is_moe or cfg.use_mla:
+    if t not in ("attn", "swa", "rglru", "rwkv6") or is_moe or cfg.use_mla:
         raise NotImplementedError(
             f"layer kind {kind} (mla={cfg.use_mla}) is not ported yet")
 
@@ -88,6 +88,9 @@ def init_layer(gen: torch.Generator | None, cfg: ModelConfig, kind: LayerKind,
     if kind[0] == "rwkv6":
         core = rec_mod.init_rwkv_time_mix(gen, cfg, **kw)
         mlp = rec_mod.init_rwkv_channel_mix(gen, cfg, **kw)
+    elif kind[0] == "rglru":
+        core = rec_mod.init_rglru(gen, cfg, **kw)
+        mlp = init_mlp(gen, cfg, **kw)
     else:
         core = attn_mod.init_attention(gen, cfg, **kw)
         mlp = init_mlp(gen, cfg, **kw)
@@ -109,6 +112,8 @@ def cache_specs_for_kind(cfg: ModelConfig, kind: LayerKind, batch: int,
     t, _ = kind
     if t == "rwkv6":
         return rec_mod.rwkv_state_specs(batch, cfg)
+    if t == "rglru":
+        return rec_mod.rglru_state_specs(batch, cfg)
     if t == "swa":
         size = min(cfg.window, max_len) if cfg.window else max_len
         return attn_mod.kv_cache_specs(batch, size, cfg.n_kv_heads,
@@ -142,11 +147,15 @@ def apply_layer(p: dict, cfg: ModelConfig, kind: LayerKind, x: torch.Tensor,
         y, cache = rec_mod.apply_rwkv_channel_mix(p["mlp"], cfg, h, cache,
                                                   ctx.mode, active=active)
         return x + y, cache
-    window = cfg.window if t == "swa" else 0
-    # only full-attention layers page
-    paged = ctx.table is not None and t == "attn" and ctx.mode == "decode"
-    y, new_cache = attn_mod.apply_attention(p["core"], cfg, h, ctx, cache,
-                                            window=window, paged=paged)
+    if t == "rglru":
+        y, new_cache = rec_mod.apply_rglru(p["core"], cfg, h, cache, ctx.mode,
+                                           active=_active_mask(ctx))
+    else:
+        window = cfg.window if t == "swa" else 0
+        # only full-attention layers page
+        paged = ctx.table is not None and t == "attn" and ctx.mode == "decode"
+        y, new_cache = attn_mod.apply_attention(p["core"], cfg, h, ctx, cache,
+                                                window=window, paged=paged)
     x = x + y
     h = apply_norm(p["norm2"], cfg, x)
     x = x + apply_mlp(p["mlp"], cfg, h)

@@ -1,6 +1,9 @@
 """The port's CUDA kernels (flash attention, the RWKV-6 WKV scan, each of
-its bodies) against their plain versions, on the card; and train steps on
-the card against the same steps on the CPU, which launch neither kernel.
+its bodies) against their plain versions, on the card, the flash kernel
+also at the sliding-window models' full prefill shapes; the sliding-window
+smoke models' prefill and decode on the card against the CPU; and train
+steps on the card against the same steps on the CPU, which launch neither
+kernel.
 
 Run on a machine with an NVIDIA card (no JAX needed there):
 
@@ -20,7 +23,8 @@ from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.launch.train import make_train_step, smoke_config  # noqa: E402
 from repro_torch.models import LanguageModel  # noqa: E402
 from repro_torch.optim import AdamW, OptConfig  # noqa: E402
-from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
+                               tree_unflatten)
 
 GPU_CASES = [
     # (B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset, out_scale, dtype)
@@ -63,6 +67,74 @@ def test_flash_kernel_matches_plain_on_gpu(case):
     ref = fa.flash_attention_plain(q, k, v, **kw)
     tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# the sliding-window models' full prefill of a 4500-token prompt, longer
+# than both windows: h2o-danube-1.8b (GQA 32/8, D 80: the mma.sync body,
+# window 4096) and recurrentgemma-9b (MQA 16/1, D 256: the wgmma body and
+# its window-limited split plan, window 2048)
+SWA_PREFILL_CASES = [
+    ((1, 4500, 4500, 32, 8, 80, 80, True, 4096, 0, 1.0, torch.bfloat16), "mma"),
+    ((1, 4500, 4500, 16, 1, 256, 256, True, 2048, 0, 1.0, torch.bfloat16),
+     "wgmma"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,body", SWA_PREFILL_CASES,
+                         ids=["danube", "recurrentgemma"])
+def test_flash_windowed_prefill_matches_plain_on_gpu(case, body):
+    """The serving path's windowed prefill (no epilogue) against the plain
+    version on the card, 2e-2 in bf16, through the body it must take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(case)
+    kw = dict(kw, residual=None)
+    assert fa.select_body(q.dtype, case[5], case[6], case[5] ** -0.5) == body
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b"])
+def test_swa_smoke_prefill_on_card_matches_cpu(arch):
+    """Smoke size in f32 (the flash kernel's FMA body, window 16): a
+    40-token prompt, longer than the window, prefilled and then decoded for
+    4 tokens on the card against the CPU, 1e-4 on the logits; one flash
+    launch per attention layer.  RG-LRU's zero-init conv is drawn first
+    (0.5 x a seeded normal), so its states carry weight."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    cfg = smoke_config(arch).scaled(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = LanguageModel(cfg, device="cpu").init(0)
+    p_cpu = tree_unflatten(p_cpu, [
+        0.5 * torch.randn(t.shape, generator=gen) if path.endswith("conv_w")
+        else t for path, t in tree_flatten(p_cpu)])
+    tokens = torch.randint(0, cfg.vocab_size, (2, 44), generator=gen,
+                           dtype=torch.int32)
+    n_attn = sum(t in ("attn", "swa") for t in cfg.layer_types())
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = LanguageModel(cfg, device=dev)
+        params = tree_map(lambda t: t.to(dev), p_cpu)
+        toks = tokens.to(dev)
+        cache = model.init_cache(2, 64, dtype=torch.float32)
+        before = fa.launches
+        logits, cache = model.prefill(params, {"tokens": toks[:, :40]}, cache)
+        assert fa.launches - before == (n_attn if dev == "cuda" else 0)
+        steps = [logits]
+        for t in range(40, 44):
+            logits, cache = model.decode_step(
+                params, toks[:, t:t + 1], cache,
+                torch.full((2,), t, dtype=torch.int32, device=dev))
+            steps.append(logits)
+        outs[dev] = torch.stack(steps).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -2,13 +2,17 @@
 
 gemma-2b (MQA, head_dim 32 at smoke size), deepseek-7b (MHA),
 h2o-danube-1.8b (GQA with a 16-token sliding window: ring caches that wrap,
-slot-dense leaves in the paged cache) and rwkv6-1.6b (pure recurrence: the
-WKV scan in prefill, per-slot states in the paged cache) smoke configs in
-f32 compute, JAX weights carried across with ``repro_torch.bridge``.  Each case reproduces a ``tests/test_decode_parity.py``
-test against the JAX full forward, at that file's bounds: 2e-4 on prefill
-logits, 3e-4 on decode logits.
+slot-dense leaves in the paged cache), rwkv6-1.6b (pure recurrence: the
+WKV scan in prefill, per-slot states in the paged cache) and
+recurrentgemma-9b (RG-LRU, RG-LRU, local attention: the 4-layer smoke, all
+unrolled, and a 7-layer one whose first 6 layers form a scanned segment of
+stacked RG-LRU leaves) smoke configs in f32 compute, JAX weights carried
+across with ``repro_torch.bridge``.  Each case reproduces a
+``tests/test_decode_parity.py`` test against the JAX full forward, at that
+file's bounds: 2e-4 on prefill logits, 3e-4 on decode logits.  The banded
+sliding-window path (prompts longer than window + q-chunk) is held against
+JAX at danube's smoke width.
 """
-import dataclasses
 import functools
 import importlib
 
@@ -23,7 +27,6 @@ import jax.numpy as jnp  # noqa: E402
 from repro.models import LanguageModel as JaxLM  # noqa: E402
 from repro.models.attention import ModelCtx as JaxCtx  # noqa: E402
 from repro_torch.bridge import params_from_numpy, params_to_numpy  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch.paged_kv import PagedKVCache, decompose  # noqa: E402
 from repro_torch.models import LanguageModel  # noqa: E402
@@ -31,21 +34,36 @@ from repro_torch.models.attention import ModelCtx  # noqa: E402
 from repro_torch.utils import tree_map  # noqa: E402
 
 ATTN_ARCHS = ["gemma-2b", "deepseek-7b", "h2o-danube-1.8b"]
-ARCHS = ATTN_ARCHS + ["rwkv6-1.6b"]
+#: "arch@L": the arch's smoke config at L layers
+RG_ARCHS = ["recurrentgemma-9b", "recurrentgemma-9b@7"]
+ARCHS = ATTN_ARCHS + ["rwkv6-1.6b"] + RG_ARCHS
 B, S = 2, 24
 
 
-def _configs(arch):
+def _smoke(pkg, arch):
+    arch, _, layers = arch.partition("@")
     name = arch.replace("-", "_").replace(".", "_")
-    jcfg = importlib.import_module(f"repro.configs.{name}").smoke()
-    if arch == "h2o-danube-1.8b":
-        # no port config yet (it is served in a later slice); the same
-        # fields make the port's ModelConfig
-        tcfg = ModelConfig(**dataclasses.asdict(jcfg))
-    else:
-        tcfg = importlib.import_module(f"repro_torch.configs.{name}").smoke()
-    return (jcfg.scaled(compute_dtype="float32"),
-            tcfg.scaled(compute_dtype="float32"))
+    cfg = importlib.import_module(f"{pkg}.configs.{name}").smoke()
+    return cfg.scaled(n_layers=int(layers)) if layers else cfg
+
+
+def _configs(arch):
+    return (_smoke("repro", arch).scaled(compute_dtype="float32"),
+            _smoke("repro_torch", arch).scaled(compute_dtype="float32"))
+
+
+def _moved_rglru(tree, seed=0):
+    """Every leaf moved by 0.05 x a seeded normal, ``conv_w`` drawn at
+    0.5 x a normal: JAX inits the RG-LRU conv to zeros, which zeros every
+    RG-LRU output and would let the block pass untested."""
+    rng = np.random.RandomState(seed)
+
+    def move(path, a):
+        if path[-1].key == "conv_w":
+            return (0.5 * rng.standard_normal(a.shape)).astype(a.dtype)
+        return (a + 0.05 * rng.standard_normal(a.shape)).astype(a.dtype)
+
+    return jax.tree_util.tree_map_with_path(move, tree)
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,6 +72,9 @@ def _setup(arch):
     jcfg, tcfg = _configs(arch)
     jmodel = JaxLM(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
+    if arch in RG_ARCHS:
+        jparams = jax.tree.map(jnp.asarray, _moved_rglru(
+            jax.tree.map(np.asarray, jparams)))
     rng = np.random.RandomState(0)
     tokens = rng.randint(0, jcfg.vocab_size, (B, S)).astype(np.int32)
 
@@ -134,10 +155,10 @@ def test_paged_chunked_decode_matches_full_forward(arch):
             err_msg=f"{arch}: paged decode step {step} diverged")
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + RG_ARCHS[:1])
 def test_prefill_takes_flash_path(arch, monkeypatch):
     """Full prefill with implicit positions calls the flash dispatch once per
-    layer; explicit positions and chunked prefill never do."""
+    attention layer; explicit positions and chunked prefill never do."""
     model, params, tokens, _ = _setup(arch)
     calls = []
     real = kops.flash_attention
@@ -150,13 +171,14 @@ def test_prefill_takes_flash_path(arch, monkeypatch):
     t = torch.from_numpy(tokens)
     cache = model.init_cache(B, max_len=S, dtype=torch.float32)
     model.prefill(params, {"tokens": t}, cache)
-    assert len(calls) == model.cfg.n_layers
+    n_attn = sum(k in ("attn", "swa") for k in model.cfg.layer_types())
+    assert len(calls) == n_attn > 0
     pos = model._positions(B, S, None)
     cache = model.init_cache(B, max_len=S, dtype=torch.float32)
     model.prefill(params, {"tokens": t, "positions": pos}, cache)
     model.prefill_chunk(params, {"tokens": t[:, :4]}, cache,
                         torch.zeros((B,), dtype=torch.int32))
-    assert len(calls) == model.cfg.n_layers
+    assert len(calls) == n_attn
 
 
 def test_prefill_takes_wkv_kernel_path(monkeypatch):
@@ -185,15 +207,15 @@ def test_prefill_takes_wkv_kernel_path(monkeypatch):
     assert len(calls) == 2 * L
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"] + RG_ARCHS)
 def test_cast_for_compute_changes_no_number(arch):
     """In bf16 compute, serving on ``cast_for_compute(params)`` equals
     serving on the f32 masters bit for bit: the load-time copy casts exactly
     the weights that every use casts.  Every leaf is moved off its init
-    value first (norm scales, w0, u ...) so a weight rounded to bf16 where
-    the model reads it in f32 would show."""
-    name = arch.replace("-", "_").replace(".", "_")
-    cfg = importlib.import_module(f"repro_torch.configs.{name}").smoke()
+    value first (norm scales, w0, u, RG-LRU's zero-init conv ...) so a
+    weight rounded to bf16 where the model reads it in f32 would show
+    (RG-LRU's ``conv_w``, scanned or not)."""
+    cfg = _smoke("repro_torch", arch)
     assert cfg.compute_dtype == "bfloat16"
     model = LanguageModel(cfg, device="cpu")
     gen = torch.Generator().manual_seed(0)
@@ -249,7 +271,7 @@ def test_bridge_rejects_missing_extra_and_misshaped_leaves():
 def test_init_matches_jax_tree_shapes():
     """The port's own seeded init draws exactly the JAX tree (keys, shapes,
     dtypes, stacked layers axis) -- what bridging the other way relies on."""
-    for arch in ("gemma-2b", "rwkv6-1.6b"):
+    for arch in ("gemma-2b", "rwkv6-1.6b", *RG_ARCHS):
         jcfg, tcfg = _configs(arch)
         jtree = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
                              JaxLM(jcfg).abstract_params())
@@ -258,3 +280,42 @@ def test_init_matches_jax_tree_shapes():
             lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
             tparams)
         assert ttree == jtree, arch
+
+
+@pytest.mark.parametrize("seq", [1056, 2112])
+def test_banded_swa_prefill_matches_jax(seq):
+    """Prompts longer than window + q-chunk take the banded path of
+    ``_attention_expanded`` (a KV band sliced per q-chunk) and wrap the SWA
+    ring in ``prefill_cache``: danube smoke (window 16) in f32 against JAX,
+    the train-mode logits at every position and the last logits of both
+    prefills (flash dispatch, explicit positions), 2e-4."""
+    jcfg, tcfg = _configs("h2o-danube-1.8b")
+    jmodel = JaxLM(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tokens = np.random.RandomState(seq).randint(
+        0, jcfg.vocab_size, (1, seq)).astype(np.int32)
+
+    def full_logits(p):
+        pos = jmodel._positions(1, seq, None)
+        x = jmodel._embed(p, jnp.asarray(tokens))
+        x, _, _ = jmodel._backbone(p, x, None, JaxCtx(mode="train", positions=pos))
+        return jmodel._head(p, x)
+
+    ref = np.asarray(jax.jit(full_logits)(jparams))
+    model = LanguageModel(tcfg, device="cpu")
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    t = torch.from_numpy(tokens)
+    pos = model._positions(1, seq, None)
+    x = model._embed(params, t)
+    x, _ = model._backbone(params, x, None, ModelCtx(mode="train", positions=pos))
+    np.testing.assert_allclose(model._head(params, x).numpy(), ref, rtol=2e-4,
+                               atol=2e-4)
+    for given in (None, pos):
+        batch = {"tokens": t} if given is None else {"tokens": t,
+                                                     "positions": given}
+        cache = model.init_cache(1, max_len=seq, dtype=torch.float32)
+        logits, cache = model.prefill(params, batch, cache)
+        np.testing.assert_allclose(logits.numpy(), ref[:, -1], rtol=2e-4,
+                                   atol=2e-4)
+        ring = cache["seg0"]["sub0"]["pos"][0, 0]  # layer 0's ring, slot 0
+        assert sorted(ring.tolist()) == list(range(seq - jcfg.window, seq))

@@ -1,12 +1,15 @@
 """The port's serving engines against the JAX engines on the same weights.
 
-gemma-2b and rwkv6-1.6b smoke params (f32 compute) are drawn by the JAX
-package and carried across with ``repro_torch.bridge``.  Over
+gemma-2b, rwkv6-1.6b, h2o-danube-1.8b and recurrentgemma-9b smoke params
+(f32 compute) are drawn by the JAX package and carried across with
+``repro_torch.bridge``.  Over
 ``tests/test_serving.py``'s ragged trace and its ``_paged`` settings, the
 port's ``PagedServingEngine`` and ``ContinuousBatcher`` must emit exactly the
 JAX engines' greedy tokens, with the same host-sync and decode-tick counts.
-rwkv6 has no page pool leaf: its per-slot states go through the paged
-cache's gather, scatter and reset as dense leaves.
+rwkv6, danube and recurrentgemma have no page pool leaf: their per-slot
+states (WKV, SWA rings, RG-LRU ``h`` and conv window) go through the paged
+cache's gather, scatter and reset, and the dense batcher's slot writes, as
+dense leaves.
 """
 import functools
 import importlib
@@ -48,6 +51,15 @@ def _models(arch="gemma-2b"):
     jcfg, tcfg = (c.scaled(compute_dtype="float32") for c in (jcfg, tcfg))
     jmodel = JaxLM(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
+    if arch == "recurrentgemma-9b":
+        # JAX inits the RG-LRU conv to zeros, which zeros every RG-LRU
+        # output and state: draw it (0.5 x a seeded normal) so the states
+        # the engines carry are nonzero
+        rng = np.random.RandomState(0)
+        jparams = jax.tree_util.tree_map_with_path(
+            lambda path, a: jnp.asarray(
+                0.5 * rng.standard_normal(a.shape), a.dtype)
+            if path[-1].key == "conv_w" else a, jparams)
     tmodel = LanguageModel(tcfg, device="cpu")
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
     return jmodel, jparams, tmodel, tparams
@@ -140,6 +152,19 @@ def test_rwkv_slots_recycled_match_jax():
     assert [r.out for r in reqs] == [r.out for r in jreqs]
     for key in ("tokens", "ticks", "host_syncs"):
         assert stats[key] == jstats[key], (key, stats[key], jstats[key])
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b"])
+def test_swa_family_paged_engine_matches_jax_engine(arch):
+    """No full-attention layer: no page pool leaf, every leaf slot-dense
+    (SWA rings that wrap past the 16-token smoke window; RG-LRU states)."""
+    stats = _check_paged_engine(arch)
+    assert stats["prefill_chunks"] > 0
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b"])
+def test_swa_family_continuous_batcher_matches_jax_batcher(arch):
+    _check_continuous_batcher(arch)
 
 
 def test_paged_engine_recycles_pages_under_pressure():

@@ -1,9 +1,10 @@
 """The port's training path against the JAX package, on the CPU.
 
 ``LanguageModel.train_loss`` and every gradient leaf on bridged weights
-(gemma-2b, deepseek-7b, rwkv6-1.6b smoke configs in f32 compute: loss within
-1e-5 relative, gradients within 2e-4 x max(1, max |g|), the decode-parity
-bound); the bf16 train cast leaf for leaf against JAX's
+(gemma-2b, deepseek-7b, rwkv6-1.6b, h2o-danube-1.8b and recurrentgemma-9b
+smoke configs in f32 compute: loss within 1e-5 relative, gradients within
+2e-4 x max(1, max |g|), the decode-parity bound; RG-LRU's backward through
+the doubling scan); the bf16 train cast leaf for leaf against JAX's
 ``_cast_for_compute``; remat and the per-layer weight views; five train
 steps against JAX's jitted step (loss within 1e-4); and the driver,
 mirroring ``tests/test_train_resume.py`` with ``device="cpu"``.
@@ -38,7 +39,8 @@ from repro_torch.optim import AdamW, OptConfig  # noqa: E402
 from repro_torch.utils import tree_flatten, tree_leaves, tree_map  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["gemma-2b", "deepseek-7b", "rwkv6-1.6b"]
+ARCHS = ["gemma-2b", "deepseek-7b", "rwkv6-1.6b", "h2o-danube-1.8b",
+         "recurrentgemma-9b"]
 B, S = 2, 24
 GRAD_TOL = 2e-4
 #: bf16 compute: both packages round the same bf16 weights, but the
@@ -68,11 +70,17 @@ def _batch(vocab, step=0):
 
 def _moved(tree, seed=0):
     """Every leaf moved by 0.05 x a seeded normal (as the serving cast test
-    does), so norm scales, w0, u ... sit off their init values."""
+    does), so norm scales, w0, u ... sit off their init values; RG-LRU's
+    ``conv_w``, which JAX inits to zeros, is drawn at 0.5 x a normal so the
+    block's gates and scan carry weight."""
     rng = np.random.RandomState(seed)
-    return jax.tree.map(
-        lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(a.dtype),
-        tree)
+
+    def move(path, a):
+        if path[-1].key == "conv_w":
+            return (0.5 * rng.standard_normal(a.shape)).astype(a.dtype)
+        return (a + 0.05 * rng.standard_normal(a.shape)).astype(a.dtype)
+
+    return jax.tree_util.tree_map_with_path(move, tree)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,7 +135,8 @@ def test_train_gradients_match_jax(arch):
                                    err_msg=f"{arch}: grad {path}")
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b",
+                                  "recurrentgemma-9b"])
 def test_bf16_train_cast_matches_jax_leaf_for_leaf(arch):
     """Trap 1: in training JAX casts every float leaf of stored rank >= 2
     to bf16 -- stacked norm scales, w0, u, decay_B too -- unlike serving.
@@ -141,9 +150,13 @@ def test_bf16_train_cast_matches_jax_leaf_for_leaf(arch):
     ours = [(p, str(t.dtype).replace("torch.", "")) for p, t in tree_flatten(cast)]
     ref = [str(a.dtype) for a in jax.tree.leaves(jcast)]
     assert [d for _, d in ours] == ref, list(zip(ours, ref))
-    assert dict(ours)["seg0/sub0/norm1/scale"] == "bfloat16"
+    if model.dec_segments[0].scanned:  # a stacked (L, d) vector
+        assert dict(ours)["seg0/sub0/norm1/scale"] == "bfloat16"
     if arch == "rwkv6-1.6b":
         assert dict(ours)["seg0/sub0/core/u"] == "bfloat16"
+    if arch == "recurrentgemma-9b":  # rounded in training, unlike serving
+        assert dict(ours)["seg0/sub0/core/conv_w"] == "bfloat16"
+        assert dict(ours)["seg0/sub0/core/lam"] == "float32"
     _, _, _, metrics = _port_loss(arch, "bfloat16")
     assert abs(metrics["loss"].item() - jmetrics["loss"]) < BF16_LOSS_TOL
 
@@ -242,7 +255,8 @@ def test_scanned_weights_have_no_per_layer_select_backward(arch, compute):
     assert found == len(stacked)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b",
+                                  "recurrentgemma-9b"])
 def test_five_train_steps_match_jax(arch):
     """The port's eager step against JAX's jitted step (``make_train_step``
     of both packages) on bridged weights and the same batches, f32."""
@@ -293,9 +307,8 @@ def test_loss_decreases_smoke():
 
 def test_preemption_resume_equivalence(tmp_path):
     """train 12 steps straight == train 8, preempt, resume to 12 (same data,
-    same seeds): the checkpoint carries the full optimizer state.  gemma-2b
-    smoke: the port has no h2o-danube-1.8b config yet."""
-    kw = dict(arch="gemma-2b", smoke=True, steps=12, global_batch=2,
+    same seeds): the checkpoint carries the full optimizer state."""
+    kw = dict(arch="h2o-danube-1.8b", smoke=True, steps=12, global_batch=2,
               seq_len=32, save_every=4, log_every=12, device="cpu")
     ref = train(ckpt_dir=str(tmp_path / "straight"), **kw)
     d2 = str(tmp_path / "resumed")
