@@ -18,7 +18,9 @@ back to the CPU):
                version's, a PyTorch library call's (a yardstick the port
                never calls) where one exists, and the card's bound; at the
                gemma-2b and deepseek-7b prefill shapes also the mma.sync
-               body, asked for through ``_body``, on the same inputs; the
+               body, asked for through ``_body``, on the same inputs; at
+               minicpm3-4b's MLA prefill (MHA 40/40, D 96 / Dv 64: mma.sync)
+               and granite-moe-1b-a400m's (GQA 16/8, D 64: wgmma); the
                WKV scan's chunked body at every WKV case, its step body
                checked at every case too and timed beside it at the
                rwkv6-1.6b prefill and paged chunk-round shapes;
@@ -47,29 +49,39 @@ back to the CPU):
                head_dim 80: the flash kernel's mma.sync body with a window),
                recurrentgemma-9b (12 x (RG-LRU, RG-LRU, SWA) + 2 RG-LRU,
                window 2048, MQA at head_dim 256: the wgmma body with a
-               window) and deepseek-7b (30 MHA layers, head_dim 128: the
-               wgmma body), one after the other, each at full width with
-               seed-0 weights (RG-LRU's zero-init conv drawn from a seeded
-               normal) and freed before the next.  First the f32 parity
-               phases on the f32 masters: for the two sliding-window
-               models a 4500-token prompt, longer than both windows,
-               through the flash kernel against the plain banded path;
-               for recurrentgemma-9b also full prefill (the doubling scan)
+               window), deepseek-7b (30 MHA layers, head_dim 128: the
+               wgmma body), minicpm3-4b (62 MLA layers: flash at D 96 /
+               Dv 64 in the expanded prefill, the absorbed latent path in
+               decode and chunked prefill, slot-dense latents in the paged
+               engine) and granite-moe-1b-a400m (24 GQA layers at D 64,
+               each with 32 experts top-8, all 32 computed on every token),
+               one after the other, each at full width with seed-0 weights
+               (RG-LRU's zero-init conv drawn from a seeded normal) and
+               freed before the next.  First the f32 parity phases on the
+               f32 masters: for the two sliding-window models a
+               4500-token prompt, longer than both windows, through the
+               flash kernel against the plain banded path; for
+               recurrentgemma-9b also full prefill (the doubling scan)
                against token-by-token decode (the per-step recurrence); for
-               deepseek-7b the gemma-2b phase 5.  Then the bf16 copy is
+               the others the gemma-2b phase 5.  Then the bf16 copy is
                made and the masters' matrices dropped, and the trace (the
                4500-token prompt added for the sliding-window models)
                goes through both engines, with flash launches read
                around each: one per attention layer per full prefill in
                the dense engine, none in the paged one;
 9. train    -- the serving models freed: gemma-2b, rwkv6-1.6b,
-               h2o-danube-1.8b and recurrentgemma-9b smoke configs, 3 train
-               steps on the card against the CPU in f32; preempt at step 8
-               and resume to 12 on the card against a straight run;
-               gemma-2b, then h2o-danube-1.8b, at full width (bf16, remat
-               full, B 2 x S 1024, seed 0), 20 steps of ``train``: finite
-               and falling loss, no flash or WKV launch, the step wall,
-               tokens/s, model-FLOP share, peak memory; then one step
+               h2o-danube-1.8b, recurrentgemma-9b, minicpm3-4b,
+               granite-moe-1b-a400m and deepseek-v2-236b smoke configs, 3
+               train steps on the card against the CPU in f32 (with the
+               router loss for the MoE ones); preempt at step 8 and resume
+               to 12 on the card against a straight run; gemma-2b,
+               h2o-danube-1.8b and granite-moe-1b-a400m at full width
+               (bf16, remat full, B 2 x S 1024, seed 0), 20 steps of
+               ``train``: finite and falling loss (and a finite, non-zero
+               router loss for granite), no flash or WKV launch, the step
+               wall, tokens/s, model-FLOP share (of the active parameters
+               for MoE, with the work ``_moe_dense`` executes beside it),
+               peak memory; then one step
                under ``torch.profiler`` (busy share, top kernels, time by
                kernel kind) and one cut into forward, backward and
                optimizer (host enqueue against device time);
@@ -81,6 +93,7 @@ repository.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -131,6 +144,13 @@ KERNEL_CASES = [
      False, torch.bfloat16),
     ("rgemma_swa_prefill", 1, 4500, 4500, 16, 1, 256, 256, True, 2048, 0,
      1.0, False, torch.bfloat16),
+    # the MLA and MoE models' full prefill of the trace's 1000-token prompt:
+    # minicpm3-4b's MLA heads (D = nope + rope = 96, Dv 64: mma.sync) and
+    # granite-moe-1b-a400m's GQA heads (D 64: wgmma)
+    ("minicpm3_mla_prefill", 1, 1000, 1000, 40, 40, 96, 64, True, 0, 0, 1.0,
+     False, torch.bfloat16),
+    ("granite_prefill", 1, 1000, 1000, 16, 8, 64, 64, True, 0, 0, 1.0, False,
+     torch.bfloat16),
 ]
 # (name, B, S, H, N, w_hi); the first is the serving path's (rwkv6-1.6b
 # prefill), then a paged chunk round (8 slots x 64 tokens), an odd length,
@@ -156,7 +176,8 @@ LONG_PROMPT = 4500
 LONG_MAX_LEN = 4608  # prompt + MAX_NEW + 1, rounded up to 16-token pages
 # the models served after rwkv6-1.6b, in order, each with its f32 parity
 # phases first (``phase_model``)
-SERVE_MODELS = ("h2o-danube-1.8b", "recurrentgemma-9b", "deepseek-7b")
+SERVE_MODELS = ("h2o-danube-1.8b", "recurrentgemma-9b", "deepseek-7b",
+                "minicpm3-4b", "granite-moe-1b-a400m")
 # RG-LRU's conv weights, drawn at this scale x a seeded normal: the config's
 # init sets them to zero (as JAX's), which zeros every RG-LRU output
 CONV_SCALE = 0.5
@@ -164,9 +185,11 @@ CONV_SCALE = 0.5
 # beside it in the same run (``_body="mma"``)
 PREV_BODY_CASES = ("gemma_prefill", "deepseek7b_prefill")
 # kernels that must compile without spills: the flash wgmma body at
-# Dv = D = 256 and 128, every instantiation of the WKV chunked body's kernels
+# Dv = D = 256, 128 and 64, every instantiation of the WKV chunked body's
+# kernels
 NO_SPILL = ("flash_fwd_wgmma_kernelILi256ELi256E",
             "flash_fwd_wgmma_kernelILi128ELi128E",
+            "flash_fwd_wgmma_kernelILi64ELi64E",
             "wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
 # the kernels each wrapper launches, as torch.profiler names them
 FLASH_KERNELS = ("flash_fwd", "flash_merge")
@@ -180,13 +203,16 @@ TRAIN_TOL = 1e-4
 RESUME_TOL = 1e-3
 # the full-width train phases (TRAIN_FULL), 2 x 1024 tokens a step; peak lr
 # OptConfig's default (train()'s 3e-3 is for the smoke configs).
-# recurrentgemma-9b does not train at full width: 16 bytes a parameter is
-# 150 GB
+# At 16 bytes a parameter (f32 masters, gradients, m, v) before
+# activations, recurrentgemma-9b needs 150 GB and minicpm3-4b 65 GB (where
+# gemma-2b's 2.5 B already peaks at 45.8 GB): neither trains at full
+# width.  deepseek-v2-236b does not fit the card at all (472 GB in bf16).
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
-TRAIN_FULL = ("gemma-2b", "h2o-danube-1.8b")
+TRAIN_FULL = ("gemma-2b", "h2o-danube-1.8b", "granite-moe-1b-a400m")
 # smoke configs trained on the card against the CPU
 TRAIN_PARITY = ("gemma-2b", "rwkv6-1.6b", "h2o-danube-1.8b",
-                "recurrentgemma-9b")
+                "recurrentgemma-9b", "minicpm3-4b", "granite-moe-1b-a400m",
+                "deepseek-v2-236b")
 # kernel kinds of the profiled train step, by substrings of their names
 TRACE_KINDS = (("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
                ("reduce", ("reduce_kernel",)),
@@ -567,6 +593,7 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.launch.serve import (ContinuousBatcher,
                                           PagedServingEngine, Request)
+    from repro_torch.utils import tree_leaves
 
     cfg = model.cfg
     prompts = prompts or _prompts(cfg.vocab_size)
@@ -616,6 +643,11 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
         raise AssertionError("[serve] paged: a request did not finish")
     if eng.kv.stats().pages_in_use or any(eng.slot_req):
         raise AssertionError("[serve] paged: pages or slots not returned")
+    view = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in tree_leaves(
+        model.cache_specs(eng.prefill_group, eng.kv.view_len)))
+    log(f"[serve] {cfg.name} paged: each prefill round gathers and scatters "
+        f"a {eng.prefill_group}-slot view, {2 * view / 1e6:.1f} MB (from the "
+        f"cache specs)")
     if launches["paged"] != paged_launches(pstats) or others:
         raise AssertionError(f"[serve] paged {name} launches "
                              f"{launches['paged']} != {paged_launches(pstats)} "
@@ -869,25 +901,29 @@ def phase_trace(model, params, kernels: tuple[str, ...],
 
 
 def _train_steps(model, params, batches):
-    """Losses of ``make_train_step`` over ``batches`` (updates ``params``)."""
+    """Losses and router losses of ``make_train_step`` over ``batches``
+    (updates ``params``)."""
     from repro_torch.launch.train import make_train_step
     from repro_torch.optim import AdamW, OptConfig
 
     opt = AdamW(OptConfig(peak_lr=3e-3, warmup_steps=2, decay_steps=10))
-    step, state, losses = make_train_step(model, opt), opt.init(params), []
+    step, state = make_train_step(model, opt), opt.init(params)
+    losses, auxes = [], []
     dev = model.device
     for b in batches:
         params, state, m = step(params, state, {
             k: torch.from_numpy(v).to(dev) for k, v in b.items()})
         losses.append(float(m["loss"]))
-    return losses, params
+        auxes.append(float(m["aux_loss"]))
+    return losses, auxes, params
 
 
 def phase_train_parity() -> None:
     """Train steps on the card against the CPU, smoke size, f32 compute
     (the CPU path is the one the CPU tests hold against JAX): 3 steps of
     ``make_train_step`` from the same seed-0 weights on the same batches;
-    losses within TRAIN_TOL relative, every parameter after the steps within
+    losses and router losses within TRAIN_TOL relative (the router loss
+    non-zero in an MoE model), every parameter after the steps within
     TRAIN_TOL x max(1, max |p|)."""
     from repro_torch.data import TokenDataset
     from repro_torch.launch.train import smoke_config
@@ -903,17 +939,23 @@ def phase_train_parity() -> None:
         data = TokenDataset(vocab_size=cfg.vocab_size, seq_len=64,
                             global_batch=2)
         batches = [data.batch(i) for i in range(3)]
-        l_cpu, p_cpu = _train_steps(cpu, p_cpu, batches)
-        l_gpu, p_gpu = _train_steps(LanguageModel(cfg, device="cuda"), p_gpu,
-                                    batches)
+        l_cpu, a_cpu, p_cpu = _train_steps(cpu, p_cpu, batches)
+        l_gpu, a_gpu, p_gpu = _train_steps(LanguageModel(cfg, device="cuda"),
+                                           p_gpu, batches)
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        if cfg.n_experts:
+            if not all(np.isfinite(a_cpu)) or 0.0 in a_cpu:
+                raise AssertionError(f"[train] {arch}: router loss {a_cpu}")
+            loss_err = max([loss_err] + [abs(a - b) / abs(b)
+                                         for a, b in zip(a_gpu, a_cpu)])
         par_err = 0.0
         for a, b in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)):
             a, b = a.detach().cpu(), b.detach()
             err = float((a - b).abs().max())
             par_err = max(par_err, err / max(1.0, float(b.abs().max())))
         log(f"[train] {arch} smoke, card vs CPU over 3 steps: losses "
-            f"{l_gpu} vs {l_cpu}; max rel loss diff {loss_err:.3e}, max "
+            f"{l_gpu} vs {l_cpu}; router losses {a_gpu} vs {a_cpu}; max "
+            f"rel loss diff {loss_err:.3e}, max "
             f"param diff / max(1, max |p|) {par_err:.3e} (tol {TRAIN_TOL})")
         if not (loss_err <= TRAIN_TOL and par_err <= TRAIN_TOL):
             raise AssertionError(f"[train] {arch}: card and CPU part")
@@ -947,13 +989,32 @@ def phase_train_resume() -> None:
         raise AssertionError(f"[train] resume differs by {gap}")
 
 
-def train_flops(cfg, batch: int, seq: int) -> float:
+def _moe_layers(cfg) -> int:
+    from repro_torch.models.transformer import layer_kinds
+
+    return sum(is_moe for _, is_moe in layer_kinds(cfg))
+
+
+def active_params(cfg) -> int:
+    """Parameters one token's forward uses: the config's count with each
+    MoE layer's routed experts cut to ``top_k`` of ``n_experts``."""
+    idle = cfg.n_experts - cfg.top_k
+    return cfg.param_count() - _moe_layers(cfg) * idle * 3 * cfg.d_model * \
+        cfg.d_ff_expert
+
+
+def train_flops(cfg, batch: int, seq: int, executed: bool = False) -> float:
     """Model FLOPs of one train step: 6 N per token (forward 2 N, backward
-    4 N; N counts the tied embedding once, as the head's product) plus
-    attention's two products over the full S x S scores the plain path
-    computes, 12 L S Hq D per token; remat's recompute is not counted."""
-    per_token = (6 * cfg.param_count()
-                 + 12 * cfg.n_layers * seq * cfg.n_heads * cfg.head_dim)
+    4 N; N the active parameters, counting the tied embedding once, as the
+    head's product) plus attention's two products over the full S x S
+    scores the plain path computes, 6 L S Hq (Dqk + Dv) per token, with
+    Dqk = nope + rope and Dv = v_head_dim for MLA (12 L S Hq D when both are
+    head_dim); remat's recompute is not counted.  ``executed`` counts every
+    expert, as ``_moe_dense`` runs them all."""
+    dqk, dv = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+               if cfg.use_mla else (cfg.head_dim, cfg.head_dim))
+    n = cfg.param_count() if executed else active_params(cfg)
+    per_token = 6 * n + 6 * cfg.n_layers * seq * cfg.n_heads * (dqk + dv)
     return per_token * batch * seq
 
 
@@ -999,10 +1060,25 @@ def phase_train_full(card: str, arch: str) -> dict[str, int]:
     log(f"[train] mean loss of the first 5 steps {first5} and of the last 5 "
         f"{last5}")
     log(f"[train] launches across the phase: {launches}")
+    if cfg.n_experts:
+        auxes = [h["aux_loss"] for h in hist]
+        log(f"[train] router losses (sum over {_moe_layers(cfg)} MoE layers) "
+            f"{auxes}")
+        if not all(np.isfinite(auxes)) or 0.0 in auxes:
+            raise AssertionError(f"[train] router loss {auxes}")
+        done = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ, executed=True)
+        log(f"[train] {active_params(cfg) / 1e9:.3f}B of "
+            f"{cfg.param_count() / 1e9:.3f}B params active a token (top "
+            f"{cfg.top_k} of {cfg.n_experts} experts); _moe_dense computes "
+            f"all {cfg.n_experts}: {done / 1e12:.3f} T FLOPs a step executed, "
+            f"{done / flops:.3f}x the model FLOPs, "
+            f"{cfg.n_experts / cfg.top_k:.1f}x in the experts; executed "
+            f"share of the peak {done / wall / peak_flops:.4f}")
     log(f"[train] step wall (median of steps 2-{TRAIN_STEPS}, each ending in "
         f"a host read) {wall * 1e3:.2f} ms; tokens/s {tokens / wall:.1f}; "
-        f"model FLOPs a step {flops / 1e12:.3f} T (6 N tokens + attention "
-        f"12 L S Hq D tokens, no recompute); model-FLOP share of the dense "
+        f"model FLOPs a step {flops / 1e12:.3f} T (6 N_active tokens + "
+        f"attention 6 L S Hq (Dqk + Dv) tokens, no recompute); model-FLOP "
+        f"share of the dense "
         f"bf16 peak {peak_flops / 1e12:.0f} TFLOP/s: "
         f"{flops / wall / peak_flops:.4f} ({card})")
     log(f"[train] peak allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")

@@ -12,4 +12,7 @@ from repro_torch.configs import (  # noqa: F401
     rwkv6_1_6b,
     h2o_danube_1_8b,
     recurrentgemma_9b,
+    minicpm3_4b,
+    granite_moe_1b_a400m,
+    deepseek_v2_236b,
 )

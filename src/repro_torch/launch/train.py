@@ -104,7 +104,8 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
             m["wall_s"] = time.time() - t0
             history.append(m)
             print(f"[train {arch}] step {step}: loss={m['loss']:.4f} "
-                  f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e}")
+                  f"aux_loss={m['aux_loss']:.4f} gnorm={m['grad_norm']:.3f} "
+                  f"lr={m['lr']:.2e}")
         if mgr and (step % save_every == 0 or step == steps):
             mgr.save(step, {"params": params, "opt_state": opt_state},
                      metadata={"arch": arch, "step": step})

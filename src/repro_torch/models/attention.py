@@ -170,42 +170,43 @@ def kv_cache_specs(batch: int, size: int, n_kv: int, dk: int, dv: int,
     }
 
 
-def prefill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
+def prefill_cache(cache: dict, new: dict[str, torch.Tensor],
                   pos: torch.Tensor) -> dict:
-    """Write a full prefix into a (possibly ring) cache, in place.  For ring
-    caches only the last ``size`` tokens are written (unique slots)."""
-    size = cache["k"].shape[1]
-    S = k.shape[1]
-    if S <= size:
-        k_w, v_w, p_w = k, v, pos
-    else:
-        k_w, v_w, p_w = k[:, -size:], v[:, -size:], pos[:, -size:]
-    slots = (p_w % size).long()  # floor-mod: padded rows carry pos < 0
-    b_idx = torch.arange(k.shape[0], device=k.device)[:, None]
-    cache["k"][b_idx, slots] = k_w.to(cache["k"].dtype)
-    cache["v"][b_idx, slots] = v_w.to(cache["v"].dtype)
-    cache["pos"][b_idx, slots] = p_w.to(cache["pos"].dtype)
+    """Write a full prefix into a (possibly ring) cache, in place: each leaf
+    of ``new`` ((B, S, ...), e.g. ``k`` and ``v``, or MLA's ``ckv`` and
+    ``kr``) and ``pos`` (B, S) at slots ``pos % size``.  For ring caches
+    only the last ``size`` tokens are written (unique slots)."""
+    size = cache["pos"].shape[1]
+    if pos.shape[1] > size:
+        new = {name: t[:, -size:] for name, t in new.items()}
+        pos = pos[:, -size:]
+    slots = (pos % size).long()  # floor-mod: padded rows carry pos < 0
+    b_idx = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    for name, t in {**new, "pos": pos}.items():
+        cache[name][b_idx, slots] = t.to(cache[name].dtype)
     return cache
 
 
-def append_cache(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor,
+def append_cache(cache: dict, new: dict[str, torch.Tensor],
                  pos: torch.Tensor) -> dict:
-    """Append one token (decode), in place. k_t: (B, 1, H, D); pos: (B,).
+    """Append one token (decode), in place: each leaf of ``new`` ((B, 1,
+    ...)) and ``pos`` (B,).
 
     pos < 0 marks an inactive slot (e.g. mid-chunk-prefill in the paged
     engine); JAX sends its write out of bounds, where it is dropped.  Here
     the row rewrites what its slot 0 already holds: each batch row writes
     only its own row, so no two writes collide."""
-    size = cache["k"].shape[1]
-    B = k_t.shape[0]
+    size = cache["pos"].shape[1]
+    B = pos.shape[0]
     valid = pos >= 0
     slots = torch.where(valid, pos % size, 0).long()
-    b_idx = torch.arange(B, device=k_t.device)
-    for name, new in (("k", k_t[:, 0]), ("v", v_t[:, 0]), ("pos", pos)):
+    b_idx = torch.arange(B, device=pos.device)
+    rows = {name: t[:, 0] for name, t in new.items()}
+    for name, t in {**rows, "pos": pos}.items():
         leaf = cache[name]
         cur = leaf[b_idx, slots]
         keep = valid.view((B,) + (1,) * (cur.ndim - 1))
-        leaf[b_idx, slots] = torch.where(keep, new.to(leaf.dtype), cur)
+        leaf[b_idx, slots] = torch.where(keep, t.to(leaf.dtype), cur)
     return cache
 
 
@@ -304,7 +305,7 @@ def apply_attention(
             new_cache["pos"], ctx.table, pos_q, causal=ctx.causal,
             window=window)
     elif ctx.mode == "decode":
-        new_cache = append_cache(cache, k, v, ctx.cache_pos)
+        new_cache = append_cache(cache, {"k": k, "v": v}, ctx.cache_pos)
         o = attention_core(q, new_cache["k"].to(cdt), new_cache["v"].to(cdt),
                            pos_q, new_cache["pos"], causal=ctx.causal,
                            window=window)
@@ -314,11 +315,11 @@ def apply_attention(
         k_att = torch.cat([cache["k"].to(cdt), k], dim=1)
         v_att = torch.cat([cache["v"].to(cdt), v], dim=1)
         pos_k = torch.cat([cache["pos"], pos_q.to(cache["pos"].dtype)], dim=1)
-        new_cache = prefill_cache(cache, k, v, pos_q)
+        new_cache = prefill_cache(cache, {"k": k, "v": v}, pos_q)
         o = attention_core(q, k_att, v_att, pos_q, pos_k, causal=ctx.causal,
                            window=window)
     else:  # prefill: attend over the computed seq, persist into the cache
-        new_cache = prefill_cache(cache, k, v, pos_q)
+        new_cache = prefill_cache(cache, {"k": k, "v": v}, pos_q)
         if ctx.contiguous:
             o = kops.flash_attention(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=ctx.causal,

@@ -123,9 +123,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, stack: int = 0,
-             device: torch.device | str = "cuda") -> dict:
-    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None,
+             *, stack: int = 0, device: torch.device | str = "cuda") -> dict:
+    """A GLU or dense MLP of width ``d_ff`` (default ``cfg.d_ff``; MoE's
+    shared experts pass ``n_shared_experts * d_ff_expert``)."""
+    d, ff, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.param_dtype
     p = {
         "w_up": dense_init(gen, (d, ff), 1, dt, stack=stack, device=device),
         "w_down": dense_init(gen, (ff, d), 1, dt, stack=stack, device=device),

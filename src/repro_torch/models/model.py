@@ -1,6 +1,6 @@
 """LanguageModel: init / train_loss / prefill / prefill_chunk / decode_step
-for the decoder-only attention, RG-LRU hybrid and RWKV-6 architectures
-(port of ``repro.models.model``).
+for the decoder-only attention (standard or MLA, dense or MoE), RG-LRU
+hybrid and RWKV-6 architectures (port of ``repro.models.model``).
 
 Parameters are a nested dict of tensors keyed exactly as the JAX pytree
 (scanned segments keep their leading ``layers`` axis), so
@@ -24,9 +24,10 @@ from repro_torch.utils import Spec, tree_map
 
 #: matrices that JAX reads in f32 at every use, never in the compute dtype:
 #: RWKV-6's bonus ``u`` and decay projection ``decay_B``
-#: (``repro/models/recurrent.py:328, 336``) and RG-LRU's conv weights
-#: ``conv_w`` (``recurrent.py:104, 128, 132``)
-F32_AT_USE = frozenset({"u", "decay_B", "conv_w"})
+#: (``repro/models/recurrent.py:328, 336``), RG-LRU's conv weights
+#: ``conv_w`` (``recurrent.py:104, 128, 132``) and the MoE router
+#: (``repro/models/moe.py:70``)
+F32_AT_USE = frozenset({"u", "decay_B", "conv_w", "router"})
 
 
 class LanguageModel:
@@ -133,11 +134,16 @@ class LanguageModel:
         return pos.expand(batch_size, seq)
 
     def _backbone(self, params: dict, x: torch.Tensor, caches: Any,
-                  ctx: ModelCtx) -> tuple[torch.Tensor, Any]:
+                  ctx: ModelCtx) -> tuple[torch.Tensor, Any, Any]:
+        """(x, caches, the router loss summed over the MoE layers: 0.0, a
+        float, in a model without experts)."""
+        aux = 0.0
         for i, seg in enumerate(self.dec_segments):
             c = None if caches is None else caches[f"seg{i}"]
-            x, _ = tfm.apply_segment(params[f"seg{i}"], self.cfg, seg, x, c, ctx)
-        return x, caches
+            x, _, a = tfm.apply_segment(params[f"seg{i}"], self.cfg, seg, x,
+                                        c, ctx)
+            aux = aux + a
+        return x, caches, aux
 
     # ------------------------------------------------------------------ train
     def train_loss(self, params: dict,
@@ -149,8 +155,9 @@ class LanguageModel:
         (B, S, vocab) f32 one-hot would take 2 GB at gemma-2b's width).
         Attention runs the plain ``attention_core``, RWKV-6 the chunked
         form and RG-LRU its doubling scan: neither kernel has a backward,
-        in JAX or here.  ``aux`` is 0:
-        the MoE kinds that produce a router loss are not ported yet."""
+        in JAX or here.  ``aux_loss`` is the MoE router loss summed over the
+        layers (0 without experts), and the total is
+        ``loss + router_aux_coef * aux_loss`` (JAX ``model.py:159-200``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -162,7 +169,7 @@ class LanguageModel:
         pos = self._positions(B, S, batch.get("positions"))
         ctx = ModelCtx(mode="train", positions=pos)
         x = self._embed(params, tokens)
-        x, _ = self._backbone(params, x, None, ctx)
+        x, _, aux = self._backbone(params, x, None, ctx)
         logits = self._head(params, x)
 
         lse = torch.logsumexp(logits, dim=-1)
@@ -170,7 +177,7 @@ class LanguageModel:
         nll = (lse - label_logit) * weights
         denom = torch.clamp(weights.sum(), min=1.0)
         loss = nll.sum() / denom
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
         total = loss + cfg.router_aux_coef * aux
         metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
                    "total_loss": total}
@@ -206,7 +213,7 @@ class LanguageModel:
         pos = self._positions(B, S, given)
         ctx = ModelCtx(mode="prefill", positions=pos, contiguous=given is None)
         x = self._embed(params, tokens)
-        x, cache = self._backbone(params, x, cache, ctx)
+        x, cache, _ = self._backbone(params, x, cache, ctx)
         return self._head(params, x[:, -1:])[:, 0], cache
 
     def prefill_chunk(self, params: dict, batch: dict, cache: dict,
@@ -223,7 +230,7 @@ class LanguageModel:
                + torch.arange(C, dtype=torch.int32, device=tokens.device))
         ctx = ModelCtx(mode="chunk_prefill", positions=pos)
         x = self._embed(params, tokens)
-        x, cache = self._backbone(params, x, cache, ctx)
+        x, cache, _ = self._backbone(params, x, cache, ctx)
         return self._head(params, x[:, -1:])[:, 0], cache
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
@@ -236,5 +243,5 @@ class LanguageModel:
         ctx = ModelCtx(mode="decode", positions=positions, cache_pos=pos,
                        table=table)
         x = self._embed(params, tokens)
-        x, cache = self._backbone(params, x, cache, ctx)
+        x, cache, _ = self._backbone(params, x, cache, ctx)
         return self._head(params, x)[:, 0], cache

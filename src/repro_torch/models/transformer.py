@@ -1,9 +1,12 @@
 """Block composition: per-layer kinds -> segments.
 
-Port of ``repro.models.transformer`` for attention layers (``attn``/``swa``)
-and RG-LRU layers (``rglru``), each followed by a dense MLP, and for RWKV-6
-layers (``rwkv6``: time mix, then channel mix); MoE, MLA and
-cross-attention kinds are later slices and raise ``NotImplementedError``.
+Port of ``repro.models.transformer`` for attention layers (``attn``/``swa``,
+standard or MLA) and RG-LRU layers (``rglru``), each followed by a dense
+MLP or, in MoE layers, the routed experts plus any shared experts, and for
+RWKV-6 layers (``rwkv6``: time mix, then channel mix); the cross-attention
+kind is a later slice and raises ``NotImplementedError``.  Every layer
+returns its router loss (0 outside MoE layers), summed up the stack as in
+JAX.
 
 Layers are grouped into *segments* as in JAX: a maximal run whose cyclic
 super-block repeats >= 2 times is "scanned" -- its weights and caches carry
@@ -25,6 +28,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.attention import ModelCtx
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
@@ -69,11 +74,9 @@ def plan_segments(cfg: ModelConfig, kinds: list[LayerKind]) -> list[Segment]:
     return segs
 
 
-def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
-    t, is_moe = kind
-    if t not in ("attn", "swa", "rglru", "rwkv6") or is_moe or cfg.use_mla:
-        raise NotImplementedError(
-            f"layer kind {kind} (mla={cfg.use_mla}) is not ported yet")
+def _check_kind(kind: LayerKind) -> None:
+    if kind[0] not in ("attn", "swa", "rglru", "rwkv6"):
+        raise NotImplementedError(f"layer kind {kind} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -83,32 +86,41 @@ def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
 
 def init_layer(gen: torch.Generator | None, cfg: ModelConfig, kind: LayerKind,
                *, stack: int = 0, device: torch.device | str = "cuda") -> dict:
-    _check_kind(cfg, kind)
+    """The layer's weight tree, JAX's ``init_layer`` key for key: an MoE
+    layer holds ``moe`` (and ``shared`` with shared experts) where the
+    others hold ``mlp``."""
+    _check_kind(kind)
+    t, is_moe = kind
     kw = dict(stack=stack, device=device)
-    if kind[0] == "rwkv6":
-        core = rec_mod.init_rwkv_time_mix(gen, cfg, **kw)
-        mlp = rec_mod.init_rwkv_channel_mix(gen, cfg, **kw)
-    elif kind[0] == "rglru":
-        core = rec_mod.init_rglru(gen, cfg, **kw)
-        mlp = init_mlp(gen, cfg, **kw)
+    p = {"norm1": init_norm(cfg, cfg.d_model, **kw)}
+    if t == "rwkv6":
+        p["core"] = rec_mod.init_rwkv_time_mix(gen, cfg, **kw)
+    elif t == "rglru":
+        p["core"] = rec_mod.init_rglru(gen, cfg, **kw)
+    elif cfg.use_mla:
+        p["core"] = mla_mod.init_mla(gen, cfg, **kw)
     else:
-        core = attn_mod.init_attention(gen, cfg, **kw)
-        mlp = init_mlp(gen, cfg, **kw)
-    return {
-        "norm1": init_norm(cfg, cfg.d_model, **kw),
-        "core": core,
-        "norm2": init_norm(cfg, cfg.d_model, **kw),
-        "mlp": mlp,
-    }
+        p["core"] = attn_mod.init_attention(gen, cfg, **kw)
+    p["norm2"] = init_norm(cfg, cfg.d_model, **kw)
+    if t == "rwkv6":
+        p["mlp"] = rec_mod.init_rwkv_channel_mix(gen, cfg, **kw)
+    elif is_moe:
+        p["moe"] = moe_mod.init_moe(gen, cfg, **kw)
+        if cfg.n_shared_experts:
+            p["shared"] = init_mlp(gen, cfg,
+                                   cfg.n_shared_experts * cfg.d_ff_expert, **kw)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, **kw)
+    return p
 
 
 def cache_specs_for_kind(cfg: ModelConfig, kind: LayerKind, batch: int,
                          max_len: int, dtype,
                          pages: tuple[int, int] | None = None) -> dict:
     """``pages=(n_pages, page_size)`` swaps full-attention KV caches for
-    shared page pools; SWA rings and recurrent states stay slot-dense
-    (O(window) and O(1) per slot)."""
-    _check_kind(cfg, kind)
+    shared page pools; SWA rings, MLA latents and recurrent states stay
+    slot-dense (O(window), compressed and O(1) per slot)."""
+    _check_kind(kind)
     t, _ = kind
     if t == "rwkv6":
         return rec_mod.rwkv_state_specs(batch, cfg)
@@ -118,6 +130,8 @@ def cache_specs_for_kind(cfg: ModelConfig, kind: LayerKind, batch: int,
         size = min(cfg.window, max_len) if cfg.window else max_len
         return attn_mod.kv_cache_specs(batch, size, cfg.n_kv_heads,
                                        cfg.head_dim, cfg.head_dim, dtype)
+    if cfg.use_mla:
+        return mla_mod.mla_cache_specs(batch, max_len, cfg, dtype)
     if pages is not None:
         return attn_mod.paged_kv_cache_specs(pages[0], pages[1], cfg.n_kv_heads,
                                              cfg.head_dim, cfg.head_dim, dtype)
@@ -135,8 +149,11 @@ def _active_mask(ctx: ModelCtx) -> torch.Tensor | None:
 
 
 def apply_layer(p: dict, cfg: ModelConfig, kind: LayerKind, x: torch.Tensor,
-                cache: Any, ctx: ModelCtx) -> tuple[torch.Tensor, Any]:
-    t, _ = kind
+                cache: Any, ctx: ModelCtx) -> tuple[torch.Tensor, Any, Any]:
+    """(x, cache, aux): ``aux`` is the MoE router loss, the float 0.0 in a
+    layer without experts (no device op)."""
+    t, is_moe = kind
+    aux = 0.0
     h = apply_norm(p["norm1"], cfg, x)
     if t == "rwkv6":
         active = _active_mask(ctx)
@@ -146,10 +163,12 @@ def apply_layer(p: dict, cfg: ModelConfig, kind: LayerKind, x: torch.Tensor,
         h = apply_norm(p["norm2"], cfg, x)
         y, cache = rec_mod.apply_rwkv_channel_mix(p["mlp"], cfg, h, cache,
                                                   ctx.mode, active=active)
-        return x + y, cache
+        return x + y, cache, aux
     if t == "rglru":
         y, new_cache = rec_mod.apply_rglru(p["core"], cfg, h, cache, ctx.mode,
                                            active=_active_mask(ctx))
+    elif cfg.use_mla:  # slot-dense latents, paged engine or not
+        y, new_cache = mla_mod.apply_mla(p["core"], cfg, h, ctx, cache)
     else:
         window = cfg.window if t == "swa" else 0
         # only full-attention layers page
@@ -158,8 +177,13 @@ def apply_layer(p: dict, cfg: ModelConfig, kind: LayerKind, x: torch.Tensor,
                                                 window=window, paged=paged)
     x = x + y
     h = apply_norm(p["norm2"], cfg, x)
-    x = x + apply_mlp(p["mlp"], cfg, h)
-    return x, new_cache
+    if is_moe:
+        y, aux = moe_mod.apply_moe(p["moe"], cfg, h)
+        if cfg.n_shared_experts:
+            y = y + apply_mlp(p["shared"], cfg, h)
+    else:
+        y = apply_mlp(p["mlp"], cfg, h)
+    return x + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +216,13 @@ def segment_cache_specs(cfg: ModelConfig, seg: Segment, batch: int,
 
 def apply_superblock(p: dict, cfg: ModelConfig, kinds: tuple[LayerKind, ...],
                      x: torch.Tensor, caches: Any, ctx: ModelCtx):
+    """(x, caches, summed router loss)."""
+    aux = 0.0
     for i, kind in enumerate(kinds):
         c = None if caches is None else caches[f"sub{i}"]
-        x, _ = apply_layer(p[f"sub{i}"], cfg, kind, x, c, ctx)
-    return x, caches
+        x, _, a = apply_layer(p[f"sub{i}"], cfg, kind, x, c, ctx)
+        aux = aux + a
+    return x, caches, aux
 
 
 #: matrix products without batch dims, whose outputs ``remat="dots"`` keeps
@@ -211,7 +238,7 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat(policy: str, fn, x: torch.Tensor) -> torch.Tensor:
+def _remat(policy: str, fn, x: torch.Tensor):
     """``fn(x)`` under activation checkpointing, as JAX's
     ``repro/models/transformer.py:306-310``:
     ``"full"`` keeps nothing inside the layer and reruns it in the backward,
@@ -229,6 +256,7 @@ def _remat(policy: str, fn, x: torch.Tensor) -> torch.Tensor:
 
 def apply_segment(p: dict, cfg: ModelConfig, seg: Segment, x: torch.Tensor,
                   caches: Any, ctx: ModelCtx):
+    """(x, caches, summed router loss), as ``apply_superblock``."""
     if not seg.scanned:
         return apply_superblock(p, cfg, seg.kinds, x, caches, ctx)
     # one unbind per stacked weight: its backward is one stack of the layers'
@@ -236,12 +264,16 @@ def apply_segment(p: dict, cfg: ModelConfig, seg: Segment, x: torch.Tensor,
     # of the whole stack per layer
     views = tree_map(lambda t: torch.unbind(t, 0), p)
     remat = ctx.mode == "train" and cfg.remat != "none"
+    aux = 0.0
     for i in range(seg.repeats):
         p_i = tree_map(lambda v: v[i], views)
         c_i = None if caches is None else tree_map(lambda t: t[i], caches)
         if remat:
-            x = _remat(cfg.remat, lambda x_, p_i=p_i: apply_superblock(
-                p_i, cfg, seg.kinds, x_, None, ctx)[0], x)
+            # the router loss leaves the checkpoint beside x, so its
+            # gradient reaches the router through the recompute
+            x, a = _remat(cfg.remat, lambda x_, p_i=p_i: apply_superblock(
+                p_i, cfg, seg.kinds, x_, None, ctx)[::2], x)
         else:
-            x, _ = apply_superblock(p_i, cfg, seg.kinds, x, c_i, ctx)
-    return x, caches
+            x, _, a = apply_superblock(p_i, cfg, seg.kinds, x, c_i, ctx)
+        aux = aux + a
+    return x, caches, aux

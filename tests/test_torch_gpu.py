@@ -1,9 +1,10 @@
 """The port's CUDA kernels (flash attention, the RWKV-6 WKV scan, each of
 its bodies) against their plain versions, on the card, the flash kernel
-also at the sliding-window models' full prefill shapes; the sliding-window
-smoke models' prefill and decode on the card against the CPU; and train
-steps on the card against the same steps on the CPU, which launch neither
-kernel.
+also at the sliding-window models' full prefill shapes and at the MLA and
+MoE models' (minicpm3-4b's D 96 / Dv 64, granite-moe-1b-a400m's D 64); the
+sliding-window, MLA and MoE smoke models' prefill and decode on the card
+against the CPU; and train steps on the card against the same steps on
+the CPU, which launch neither kernel.
 
 Run on a machine with an NVIDIA card (no JAX needed there):
 
@@ -99,6 +100,34 @@ def test_flash_windowed_prefill_matches_plain_on_gpu(case, body):
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
+# the MLA and MoE models' full prefill of a 1000-token prompt: minicpm3-4b's
+# MLA heads (MHA 40/40, D = nope + rope = 96, Dv 64: the mma.sync body) and
+# granite-moe-1b-a400m's (GQA 16/8, D = Dv = 64: the wgmma body)
+MLA_MOE_PREFILL_CASES = [
+    ((1, 1000, 1000, 40, 40, 96, 64, True, 0, 0, 1.0, torch.bfloat16), "mma"),
+    ((1, 1000, 1000, 16, 8, 64, 64, True, 0, 0, 1.0, torch.bfloat16), "wgmma"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,body", MLA_MOE_PREFILL_CASES,
+                         ids=["minicpm3_mla", "granite"])
+def test_flash_mla_moe_prefill_matches_plain_on_gpu(case, body):
+    """The serving path's prefill at the two new head-dim pairs against the
+    plain version on the card, 2e-2 in bf16, through the body it must take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(case)
+    kw = dict(kw, residual=None)
+    assert fa.select_body(q.dtype, case[5], case[6], case[5] ** -0.5) == body
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b"])
 def test_swa_smoke_prefill_on_card_matches_cpu(arch):
@@ -107,6 +136,19 @@ def test_swa_smoke_prefill_on_card_matches_cpu(arch):
     4 tokens on the card against the CPU, 1e-4 on the logits; one flash
     launch per attention layer.  RG-LRU's zero-init conv is drawn first
     (0.5 x a seeded normal), so its states carry weight."""
+    _smoke_serving_on_card_matches_cpu(arch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-1b-a400m",
+                                  "deepseek-v2-236b"])
+def test_mla_moe_smoke_prefill_on_card_matches_cpu(arch):
+    """The same at the MLA and MoE smoke configs: MLA's 24-dim heads reach
+    the FMA body padded to 32; decode runs the absorbed latent path."""
+    _smoke_serving_on_card_matches_cpu(arch)
+
+
+def _smoke_serving_on_card_matches_cpu(arch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     cfg = smoke_config(arch).scaled(compute_dtype="float32")
@@ -305,7 +347,8 @@ def _train(device, cfg, params, steps=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b", "minicpm3-4b",
+                                  "granite-moe-1b-a400m", "deepseek-v2-236b"])
 def test_train_steps_on_card_match_cpu(arch):
     """Three train steps on the card against the same steps on the CPU
     (the path the CPU tests hold against JAX), smoke size, f32 compute:
@@ -326,7 +369,8 @@ def test_train_steps_on_card_match_cpu(arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b",
+                                  "granite-moe-1b-a400m"])
 def test_train_step_on_card_launches_no_kernel(arch):
     """A train step (bf16 compute, remat full) on the card reaches neither
     hand-written kernel: neither has a backward, in JAX or here."""

@@ -6,7 +6,10 @@ slot-dense leaves in the paged cache), rwkv6-1.6b (pure recurrence: the
 WKV scan in prefill, per-slot states in the paged cache) and
 recurrentgemma-9b (RG-LRU, RG-LRU, local attention: the 4-layer smoke, all
 unrolled, and a 7-layer one whose first 6 layers form a scanned segment of
-stacked RG-LRU leaves) smoke configs in f32 compute, JAX weights carried
+stacked RG-LRU leaves), minicpm3-4b (MLA: latent caches, slot-dense in the
+paged cache), granite-moe-1b-a400m (MoE, 4 experts top-2 at smoke width)
+and deepseek-v2-236b (MLA + MoE + a shared expert after a dense first
+layer) smoke configs in f32 compute, JAX weights carried
 across with ``repro_torch.bridge``.  Each case reproduces a
 ``tests/test_decode_parity.py`` test against the JAX full forward, at that
 file's bounds: 2e-4 on prefill logits, 3e-4 on decode logits.  The banded
@@ -36,7 +39,8 @@ from repro_torch.utils import tree_map  # noqa: E402
 ATTN_ARCHS = ["gemma-2b", "deepseek-7b", "h2o-danube-1.8b"]
 #: "arch@L": the arch's smoke config at L layers
 RG_ARCHS = ["recurrentgemma-9b", "recurrentgemma-9b@7"]
-ARCHS = ATTN_ARCHS + ["rwkv6-1.6b"] + RG_ARCHS
+MLA_MOE_ARCHS = ["minicpm3-4b", "granite-moe-1b-a400m", "deepseek-v2-236b"]
+ARCHS = ATTN_ARCHS + ["rwkv6-1.6b"] + RG_ARCHS + MLA_MOE_ARCHS
 B, S = 2, 24
 
 
@@ -97,7 +101,7 @@ def test_full_forward_matches_jax(arch):
     t = torch.from_numpy(tokens)
     pos = model._positions(B, S, None)
     x = model._embed(params, t)
-    x, _ = model._backbone(params, x, None, ModelCtx(mode="train", positions=pos))
+    x, _, _ = model._backbone(params, x, None, ModelCtx(mode="train", positions=pos))
     np.testing.assert_allclose(model._head(params, x).numpy(), ref,
                                rtol=2e-4, atol=2e-4)
 
@@ -155,7 +159,7 @@ def test_paged_chunked_decode_matches_full_forward(arch):
             err_msg=f"{arch}: paged decode step {step} diverged")
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + RG_ARCHS[:1])
+@pytest.mark.parametrize("arch", ATTN_ARCHS + RG_ARCHS[:1] + MLA_MOE_ARCHS[:2])
 def test_prefill_takes_flash_path(arch, monkeypatch):
     """Full prefill with implicit positions calls the flash dispatch once per
     attention layer; explicit positions and chunked prefill never do."""
@@ -207,14 +211,15 @@ def test_prefill_takes_wkv_kernel_path(monkeypatch):
     assert len(calls) == 2 * L
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"] + RG_ARCHS)
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"] + RG_ARCHS
+                         + ["granite-moe-1b-a400m"])
 def test_cast_for_compute_changes_no_number(arch):
     """In bf16 compute, serving on ``cast_for_compute(params)`` equals
     serving on the f32 masters bit for bit: the load-time copy casts exactly
     the weights that every use casts.  Every leaf is moved off its init
     value first (norm scales, w0, u, RG-LRU's zero-init conv ...) so a
     weight rounded to bf16 where the model reads it in f32 would show
-    (RG-LRU's ``conv_w``, scanned or not)."""
+    (RG-LRU's ``conv_w``, scanned or not; the MoE ``router``)."""
     cfg = _smoke("repro_torch", arch)
     assert cfg.compute_dtype == "bfloat16"
     model = LanguageModel(cfg, device="cpu")
@@ -271,7 +276,7 @@ def test_bridge_rejects_missing_extra_and_misshaped_leaves():
 def test_init_matches_jax_tree_shapes():
     """The port's own seeded init draws exactly the JAX tree (keys, shapes,
     dtypes, stacked layers axis) -- what bridging the other way relies on."""
-    for arch in ("gemma-2b", "rwkv6-1.6b", *RG_ARCHS):
+    for arch in ("gemma-2b", "rwkv6-1.6b", *RG_ARCHS, *MLA_MOE_ARCHS):
         jcfg, tcfg = _configs(arch)
         jtree = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
                              JaxLM(jcfg).abstract_params())
@@ -307,7 +312,7 @@ def test_banded_swa_prefill_matches_jax(seq):
     t = torch.from_numpy(tokens)
     pos = model._positions(1, seq, None)
     x = model._embed(params, t)
-    x, _ = model._backbone(params, x, None, ModelCtx(mode="train", positions=pos))
+    x, _, _ = model._backbone(params, x, None, ModelCtx(mode="train", positions=pos))
     np.testing.assert_allclose(model._head(params, x).numpy(), ref, rtol=2e-4,
                                atol=2e-4)
     for given in (None, pos):

@@ -1,7 +1,8 @@
 """The port's serving engines against the JAX engines on the same weights.
 
-gemma-2b, rwkv6-1.6b, h2o-danube-1.8b and recurrentgemma-9b smoke params
-(f32 compute) are drawn by the JAX package and carried across with
+gemma-2b, rwkv6-1.6b, h2o-danube-1.8b, recurrentgemma-9b, minicpm3-4b and
+granite-moe-1b-a400m smoke params (f32 compute) are drawn by the JAX
+package and carried across with
 ``repro_torch.bridge``.  Over
 ``tests/test_serving.py``'s ragged trace and its ``_paged`` settings, the
 port's ``PagedServingEngine`` and ``ContinuousBatcher`` must emit exactly the
@@ -9,7 +10,7 @@ JAX engines' greedy tokens, with the same host-sync and decode-tick counts.
 rwkv6, danube and recurrentgemma have no page pool leaf: their per-slot
 states (WKV, SWA rings, RG-LRU ``h`` and conv window) go through the paged
 cache's gather, scatter and reset, and the dense batcher's slot writes, as
-dense leaves.
+dense leaves; so do minicpm3-4b's MLA latents.
 """
 import functools
 import importlib
@@ -164,6 +165,20 @@ def test_swa_family_paged_engine_matches_jax_engine(arch):
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b"])
 def test_swa_family_continuous_batcher_matches_jax_batcher(arch):
+    _check_continuous_batcher(arch)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-1b-a400m"])
+def test_mla_moe_paged_engine_matches_jax_engine(arch):
+    """minicpm3-4b: every attention layer is MLA, so the cache has no page
+    pool leaf, only slot-dense latents; granite-moe-1b-a400m: GQA page
+    pools, and the routed experts in every layer."""
+    stats = _check_paged_engine(arch)
+    assert stats["prefill_chunks"] > 0
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-1b-a400m"])
+def test_mla_moe_continuous_batcher_matches_jax_batcher(arch):
     _check_continuous_batcher(arch)
 
 

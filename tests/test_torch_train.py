@@ -1,8 +1,9 @@
 """The port's training path against the JAX package, on the CPU.
 
 ``LanguageModel.train_loss`` and every gradient leaf on bridged weights
-(gemma-2b, deepseek-7b, rwkv6-1.6b, h2o-danube-1.8b and recurrentgemma-9b
-smoke configs in f32 compute: loss within 1e-5 relative, gradients within
+(gemma-2b, deepseek-7b, rwkv6-1.6b, h2o-danube-1.8b, recurrentgemma-9b,
+minicpm3-4b, granite-moe-1b-a400m and deepseek-v2-236b smoke configs in f32
+compute: loss and the MoE router loss within 1e-5 relative, gradients within
 2e-4 x max(1, max |g|), the decode-parity bound; RG-LRU's backward through
 the doubling scan); the bf16 train cast leaf for leaf against JAX's
 ``_cast_for_compute``; remat and the per-layer weight views; five train
@@ -39,8 +40,9 @@ from repro_torch.optim import AdamW, OptConfig  # noqa: E402
 from repro_torch.utils import tree_flatten, tree_leaves, tree_map  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
 ARCHS = ["gemma-2b", "deepseek-7b", "rwkv6-1.6b", "h2o-danube-1.8b",
-         "recurrentgemma-9b"]
+         "recurrentgemma-9b", "minicpm3-4b"] + MOE_ARCHS
 B, S = 2, 24
 GRAD_TOL = 2e-4
 #: bf16 compute: both packages round the same bf16 weights, but the
@@ -118,7 +120,12 @@ def test_train_loss_matches_jax(arch):
                                rtol=1e-5)
     np.testing.assert_allclose(total.item(), jmetrics["total_loss"], rtol=1e-5)
     assert float(metrics["tokens"]) == jmetrics["tokens"] == B * S - 5
-    assert float(metrics["aux_loss"]) == jmetrics["aux_loss"] == 0.0
+    if arch in MOE_ARCHS:  # the router loss, summed over the MoE layers
+        assert jmetrics["aux_loss"] > 0
+        np.testing.assert_allclose(metrics["aux_loss"].item(),
+                                   jmetrics["aux_loss"], rtol=1e-5)
+    else:
+        assert float(metrics["aux_loss"]) == jmetrics["aux_loss"] == 0.0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -220,6 +227,28 @@ def test_remat_changes_no_gradient(monkeypatch):
     assert out["dots"][4] == out["full"][4]
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_remat_keeps_router_loss_gradient(arch):
+    """The router loss leaves each checkpointed layer beside x: under
+    ``remat`` full and dots the total loss and every gradient equal the
+    unchecked run's bit for bit, and the routers' gradients, which the aux
+    loss feeds, are not zero."""
+    runs = {}
+    for policy in ("none", "full", "dots"):
+        model, params, total, metrics = _port_loss(arch, remat=policy)
+        assert any(seg.scanned for seg in model.dec_segments)
+        grads = torch.autograd.grad(total, tree_leaves(params))
+        runs[policy] = (total, metrics["aux_loss"], grads)
+        routers = [g for (path, _), g in zip(tree_flatten(params), grads)
+                   if path.endswith("router")]
+        assert routers and all(float(g.abs().max()) > 0 for g in routers)
+    for policy in ("full", "dots"):
+        assert torch.equal(runs[policy][0], runs["none"][0])
+        assert torch.equal(runs[policy][1], runs["none"][1])
+        for a, b in zip(runs[policy][2], runs["none"][2]):
+            assert torch.equal(a, b), policy
+
+
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"])
 def test_scanned_weights_have_no_per_layer_select_backward(arch, compute):
@@ -256,7 +285,8 @@ def test_scanned_weights_have_no_per_layer_select_backward(arch, compute):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "minicpm3-4b",
+                                  *MOE_ARCHS])
 def test_five_train_steps_match_jax(arch):
     """The port's eager step against JAX's jitted step (``make_train_step``
     of both packages) on bridged weights and the same batches, f32."""
