@@ -20,7 +20,11 @@ back to the CPU):
                gemma-2b and deepseek-7b prefill shapes also the mma.sync
                body, asked for through ``_body``, on the same inputs; at
                minicpm3-4b's MLA prefill (MHA 40/40, D 96 / Dv 64: mma.sync)
-               and granite-moe-1b-a400m's (GQA 16/8, D 64: wgmma); the
+               and granite-moe-1b-a400m's (GQA 16/8, D 64: wgmma); at
+               whisper-medium's non-causal encoder (B 4 x 1500 frames) and
+               cross-attention (224 queries over 1500 frames), qwen2-vl-72b's
+               GQA 64/8 at D 128 and deepseek-v2-236b's MLA at D 192 /
+               Dv 128 with 128 heads (all wgmma); the
                WKV scan's chunked body at every WKV case, its step body
                checked at every case too and timed beside it at the
                rwkv6-1.6b prefill and paged chunk-round shapes;
@@ -53,8 +57,12 @@ back to the CPU):
                wgmma body), minicpm3-4b (62 MLA layers: flash at D 96 /
                Dv 64 in the expanded prefill, the absorbed latent path in
                decode and chunked prefill, slot-dense latents in the paged
-               engine) and granite-moe-1b-a400m (24 GQA layers at D 64,
+               engine), granite-moe-1b-a400m (24 GQA layers at D 64,
                each with 32 experts top-8, all 32 computed on every token),
+               qwen2-vl-72b at a depth cut of 8 of its 80 layers (M-RoPE,
+               GQA 64/8 at D 128) and deepseek-v2-236b at a depth cut of
+               its dense first layer and one MoE layer (MLA at D 192 /
+               Dv 128, 160 experts all computed),
                one after the other, each at full width with seed-0 weights
                (RG-LRU's zero-init conv drawn from a seeded normal) and
                freed before the next.  First the f32 parity phases on the
@@ -63,17 +71,33 @@ back to the CPU):
                flash kernel against the plain banded path; for
                recurrentgemma-9b also full prefill (the doubling scan)
                against token-by-token decode (the per-step recurrence); for
-               the others the gemma-2b phase 5.  Then the bf16 copy is
-               made and the masters' matrices dropped, and the trace (the
+               the others the gemma-2b phase 5; for qwen2-vl also prefill
+               with three equal M-RoPE streams given (plain) against none
+               (flash).  Then the bf16 copy is made and the masters'
+               matrices dropped (qwen2-vl: one multimodal prefill over a
+               16 x 16 patch grid with distinct t/h/w streams, then 8
+               decode steps, finite logits), and the trace (the
                4500-token prompt added for the sliding-window models)
                goes through both engines, with flash launches read
                around each: one per attention layer per full prefill in
                the dense engine, none in the paged one;
+8b. whisper  -- whisper-medium at full width, no cut (no engine serves it, in
+               the reference or here: neither passes encoder frames), through
+               ``LanguageModel.prefill`` with 1500 seeded frames per row and
+               ``decode_step``: f32 on the masters, flash (72 launches a
+               prefill: 24 encoder, 24 self, 24 cross) against the plain
+               path, and 8 decode steps against a full prefill of the prompt
+               plus those tokens; then bf16, run a (4 rows x 4 tokens) and
+               run b (1 x 224), each prefill plus 64 greedy steps, with
+               flash launches read around each, wall, tokens/s, peak memory
+               and greedy agreement with f32;
 9. train    -- the serving models freed: gemma-2b, rwkv6-1.6b,
                h2o-danube-1.8b, recurrentgemma-9b, minicpm3-4b,
-               granite-moe-1b-a400m and deepseek-v2-236b smoke configs, 3
-               train steps on the card against the CPU in f32 (with the
-               router loss for the MoE ones); preempt at step 8 and resume
+               granite-moe-1b-a400m, deepseek-v2-236b, whisper-medium (with
+               frames) and qwen2-vl-72b (with embeds and 3-stream positions)
+               smoke configs, 3 train steps on the card against the CPU in
+               f32 (with the router loss for the MoE ones); preempt at step 8
+               and resume
                to 12 on the card against a straight run; gemma-2b,
                h2o-danube-1.8b and granite-moe-1b-a400m at full width
                (bf16, remat full, B 2 x S 1024, seed 0), 20 steps of
@@ -151,6 +175,20 @@ KERNEL_CASES = [
      False, torch.bfloat16),
     ("granite_prefill", 1, 1000, 1000, 16, 8, 64, 64, True, 0, 0, 1.0, False,
      torch.bfloat16),
+    # whisper-medium's full prefill: the encoder over 1500 frames (B 4,
+    # MHA 16/16, D 64, non-causal; 1500 is not a multiple of the 64-key
+    # tile) and the cross-attention of run b's 224-token prompt over them;
+    # qwen2-vl-72b's prefill of the trace's 1000-token prompt (GQA 64/8,
+    # D 128) and deepseek-v2-236b's MLA prefill (MHA 128/128, D = nope +
+    # rope = 192, Dv 128), all on the wgmma body
+    ("whisper_encoder", 4, 1500, 1500, 16, 16, 64, 64, False, 0, 0, 1.0,
+     False, torch.bfloat16),
+    ("whisper_cross_prefill", 1, 224, 1500, 16, 16, 64, 64, False, 0, 0, 1.0,
+     False, torch.bfloat16),
+    ("qwen2vl_prefill", 1, 1000, 1000, 64, 8, 128, 128, True, 0, 0, 1.0,
+     False, torch.bfloat16),
+    ("dsv2_mla_prefill", 1, 1000, 1000, 128, 128, 192, 128, True, 0, 0, 1.0,
+     False, torch.bfloat16),
 ]
 # (name, B, S, H, N, w_hi); the first is the serving path's (rwkv6-1.6b
 # prefill), then a paged chunk round (8 slots x 64 tokens), an odd length,
@@ -175,9 +213,23 @@ PROMPT_LENS = [97, 1000, 351, 742, 180, 563]
 LONG_PROMPT = 4500
 LONG_MAX_LEN = 4608  # prompt + MAX_NEW + 1, rounded up to 16-token pages
 # the models served after rwkv6-1.6b, in order, each with its f32 parity
-# phases first (``phase_model``)
+# phases first (``phase_model``); "arch@L" is a depth cut, the arch at its
+# full width with L layers: qwen2-vl-72b keeps 8 of its 80 layers (9.51 B
+# parameters, 19.0 GB in bf16), deepseek-v2-236b its dense first layer and
+# one MoE layer of 160 experts (5.359 B, 10.7 GB in bf16), where the whole
+# models hold 144 and 472 GB in bf16
 SERVE_MODELS = ("h2o-danube-1.8b", "recurrentgemma-9b", "deepseek-7b",
-                "minicpm3-4b", "granite-moe-1b-a400m")
+                "minicpm3-4b", "granite-moe-1b-a400m", "qwen2-vl-72b@8",
+                "deepseek-v2-236b@2")
+# qwen2-vl's multimodal prefill: text, a PATCH_GRID x PATCH_GRID grid of
+# seeded patch embeddings (the vision frontend is a stub), text
+PATCH_GRID, MM_TEXT = 16, 8
+# whisper-medium (no engine serves it, in the reference or here: neither
+# passes encoder frames): LanguageModel.prefill with frames, then greedy
+# decode_step, at its 1500 encoder frames and 448-token decoder context;
+# run a: 4 rows of a 4-token prompt, run b: one 224-token prompt
+WHISPER_ENC_LEN, WHISPER_MAX_LEN, WHISPER_STEPS = 1500, 448, 64
+WHISPER_RUNS = (("a", 4, 4), ("b", 1, 224))  # (run, rows, prompt tokens)
 # RG-LRU's conv weights, drawn at this scale x a seeded normal: the config's
 # init sets them to zero (as JAX's), which zeros every RG-LRU output
 CONV_SCALE = 0.5
@@ -212,7 +264,7 @@ TRAIN_FULL = ("gemma-2b", "h2o-danube-1.8b", "granite-moe-1b-a400m")
 # smoke configs trained on the card against the CPU
 TRAIN_PARITY = ("gemma-2b", "rwkv6-1.6b", "h2o-danube-1.8b",
                 "recurrentgemma-9b", "minicpm3-4b", "granite-moe-1b-a400m",
-                "deepseek-v2-236b")
+                "deepseek-v2-236b", "whisper-medium", "qwen2-vl-72b")
 # kernel kinds of the profiled train step, by substrings of their names
 TRACE_KINDS = (("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
                ("reduce", ("reduce_kernel",)),
@@ -396,6 +448,8 @@ def _library_call(case, q, k, v):
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
     if causal and not window and q_offset == 0 and Sq == Skv:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    if not causal and not window:  # every key visible: no mask
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt)
     mask = _visible(case)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
@@ -555,6 +609,27 @@ def phase_wkv_kernel() -> list[dict]:
         log(f"[kernels] wkv {json.dumps(row)}")
         results.append(row)
     return results
+
+
+def _config(arch: str):
+    """The config of "arch", or of "arch@L": the arch at its full width with
+    its first L layers (a depth cut, labelled so wherever it is logged)."""
+    from repro_torch.configs import get_config
+
+    name, _, layers = arch.partition("@")
+    cfg = get_config(name)
+    return cfg.scaled(name=arch, n_layers=int(layers)) if layers else cfg
+
+
+def _depth(cfg) -> str:
+    """How a config is cut, for its log lines."""
+    from repro_torch.configs import get_config
+
+    name, _, layers = cfg.name.partition("@")
+    if not layers:
+        return "no depth cut"
+    return (f"depth cut: {cfg.n_layers} of {get_config(name).n_layers} "
+            f"layers, full width")
 
 
 def _prompts(vocab: int, long: bool = False) -> list[list[int]]:
@@ -804,12 +879,11 @@ def phase_model(arch: str) -> dict[str, int]:
     card never holds the masters, an f32 forward and the copy at once), and
     the trace through both engines.  Returns the flash launches by
     engine."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import LanguageModel
     from repro_torch.utils import tree_leaves
 
-    cfg = get_config(arch)
+    cfg = _config(arch)
     torch.cuda.reset_peak_memory_stats()
     model = LanguageModel(cfg, device="cuda")
     t0 = time.perf_counter()
@@ -817,10 +891,10 @@ def phase_model(arch: str) -> dict[str, int]:
     _draw_conv(params)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[serve] {cfg.name} full width: {n_params / 1e9:.3f}B params held "
-        f"({cfg.param_count() / 1e9:.3f}B by the config's count), "
-        f"{cfg.n_layers} layers ({_attn_layers(cfg)} attention), init "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[serve] {cfg.name} full width ({_depth(cfg)}): "
+        f"{n_params / 1e9:.3f}B params held ({cfg.param_count() / 1e9:.3f}B "
+        f"by the config's count), {cfg.n_layers} layers ({_attn_layers(cfg)} "
+        f"attention), init {time.perf_counter() - t0:.1f}s")
     long = bool(cfg.window)
     prompts = _prompts(cfg.vocab_size, long=long)
     model32 = LanguageModel(cfg.scaled(compute_dtype="float32"), device="cuda")
@@ -831,20 +905,308 @@ def phase_model(arch: str) -> dict[str, int]:
     if "rglru" in cfg.layer_types():
         phase_parity_decode(model32, params, [prompts[2]], fa,
                             _attn_layers(cfg))
+    if cfg.pos_type == "mrope":
+        phase_mrope_streams(model32, params, prompts[:2])
+    moe = (f" (_moe_dense computes all {cfg.n_experts} experts on every "
+           f"token)" if cfg.n_experts else "")
+    log(f"[mem] {cfg.name} f32 phases: peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{moe}")
+    cast = model.cast_for_compute(params)
+    del model32, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.pos_type == "mrope":
+        phase_multimodal(model, cast)
+    launches = phase_serve(model, cast, fa, _attn_layers(cfg),
+                           lambda stats: 0, prompts,
+                           LONG_MAX_LEN if long else 1024)
+    log(f"[mem] {cfg.name} serving: peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{moe}")
+    del model, cast
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mm_positions(n_text: int, grid: int, n_after: int) -> np.ndarray:
+    """(3, 1, S) M-RoPE coordinates of ``n_text`` text tokens, a ``grid`` x
+    ``grid`` patch grid, ``n_after`` text tokens.  The temporal stream is
+    the token's index (the model's masks and cache slots read it, so it
+    stays unique); height and width carry the grid's rows and columns from
+    where the text left off, and equal the temporal stream on text."""
+    n = n_text + grid * grid + n_after
+    t = np.arange(n)
+    h, w = t.copy(), t.copy()
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    h[n_text:n_text + grid * grid] = n_text + r
+    w[n_text:n_text + grid * grid] = n_text + c
+    return np.stack([t, h, w])[:, None].astype(np.int32)
+
+
+def phase_mrope_streams(model32, params, prompts) -> None:
+    """M-RoPE on the card, f32: prefill with explicit (3, B, S) positions,
+    three equal streams (the plain attention path), against prefill with
+    none (the model builds the same streams; the flash kernel), first-token
+    logits within PARITY_TOL."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = model32.cfg
+    for i, p in enumerate(prompts):
+        tokens = torch.tensor([p], dtype=torch.int32, device="cuda")
+        streams = torch.arange(len(p), dtype=torch.int32,
+                               device="cuda").expand(3, 1, len(p))
+        before = fa.launches
+        flash, _ = model32.prefill(params, {"tokens": tokens},
+                                   model32.init_cache(1, 1024,
+                                                      dtype=torch.float32))
+        mid = fa.launches
+        plain, _ = model32.prefill(params, {"tokens": tokens,
+                                            "positions": streams},
+                                   model32.init_cache(1, 1024,
+                                                      dtype=torch.float32))
+        if mid - before != _attn_layers(cfg) or fa.launches != mid:
+            raise AssertionError(f"[parity] {cfg.name}: flash launches "
+                                 f"{mid - before}, {fa.launches - mid}")
+        err = float((flash - plain).abs().max())
+        log(f"[parity] {cfg.name} M-RoPE prompt {i} (len {len(p)}): max "
+            f"|no positions (flash) - three equal streams given (plain)| "
+            f"first-token logits {err:.3e} (max |logit| "
+            f"{float(flash.abs().max()):.3f}, tol {PARITY_TOL})")
+        if not bool(torch.isfinite(flash).all()) or err > PARITY_TOL:
+            raise AssertionError(f"[parity] {cfg.name} M-RoPE: {err}")
+
+
+def phase_multimodal(model, params, steps: int = 8) -> None:
+    """One multimodal prefill in the compute dtype: MM_TEXT text tokens, a
+    PATCH_GRID x PATCH_GRID grid of seeded patch embeddings (0.02 x a
+    normal, the embedding init's scale; the vision frontend is a stub), then
+    MM_TEXT text tokens, with distinct temporal / height / width streams
+    (the plain path), then ``steps`` greedy decode steps; every logit must
+    be finite.  The same construction is held against JAX on the CPU at
+    smoke width (tests/test_torch_encdec_mrope.py)."""
+    cfg = model.cfg
+    pos = torch.from_numpy(_mm_positions(MM_TEXT, PATCH_GRID, MM_TEXT)).to("cuda")
+    n = pos.shape[-1]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=g,
+                           device="cuda", dtype=torch.int32)
+    embeds = params["embed"][tokens.long()]  # the text's own embeddings
+    patches = slice(MM_TEXT, MM_TEXT + PATCH_GRID ** 2)
+    embeds[:, patches] = 0.02 * torch.randn(
+        (1, PATCH_GRID ** 2, cfg.d_model), generator=g, device="cuda").to(
+        embeds.dtype)
+    cache = model.init_cache(1, n + steps + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens, "embeds": embeds,
+                                           "positions": pos}, cache)
+    outs = [logits]
+    for t in range(n, n + steps):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        logits, cache = model.decode_step(
+            params, tok, cache, torch.full((1,), t, dtype=torch.int32,
+                                           device="cuda"))
+        outs.append(logits)
+    torch.cuda.synchronize()
+    out = torch.stack(outs)
+    finite = bool(torch.isfinite(out).all())
+    log(f"[serve] {cfg.name} multimodal: {MM_TEXT} text + "
+        f"{PATCH_GRID}x{PATCH_GRID} patches + {MM_TEXT} text = {n} tokens "
+        f"with distinct t/h/w streams (the patches' t {MM_TEXT}.."
+        f"{MM_TEXT + PATCH_GRID ** 2 - 1}, h and w {MM_TEXT}.."
+        f"{MM_TEXT + PATCH_GRID - 1}), then {steps} decode steps: "
+        f"{time.perf_counter() - t0:.3f}s, logits finite {finite}, max "
+        f"|logit| {float(out.abs().max()):.3f}, greedy tokens "
+        f"{out.argmax(-1)[:, 0].tolist()}")
+    if not finite:
+        raise AssertionError(f"[serve] {cfg.name} multimodal: logits not "
+                             f"finite")
+
+
+def _whisper_batch(run: str, rows: int, n: int, vocab: int, d: int):
+    """Seeded tokens (rows, n) and frames (rows, WHISPER_ENC_LEN, d): each
+    frame set a standard normal of its own seed."""
+    g = torch.Generator(device="cuda").manual_seed(ord(run))
+    tokens = torch.randint(0, vocab, (rows, n), generator=g, device="cuda",
+                           dtype=torch.int32)
+    frames = torch.stack([torch.randn(
+        (WHISPER_ENC_LEN, d), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(100 * ord(run) + r))
+        for r in range(rows)])
+    return tokens, frames
+
+
+def _whisper_greedy(model, params, tokens, frames, steps, dtype):
+    """prefill with frames, then ``steps`` greedy decode steps: (the
+    prefill's logits, the logits of every step, the greedy tokens fed, the
+    prefill's wall, the decode wall)."""
+    rows, n = tokens.shape
+    cache = model.init_cache(rows, WHISPER_MAX_LEN, WHISPER_ENC_LEN,
+                             dtype=dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache = model.prefill(params, {"tokens": tokens, "frames": frames},
+                                 cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, fed, outs = first, [], []
+    for t in range(n, n + steps):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        fed.append(tok)
+        logits, cache = model.decode_step(
+            params, tok, cache, torch.full((rows,), t, dtype=torch.int32,
+                                           device="cuda"))
+        outs.append(logits)
+    torch.cuda.synchronize()
+    return (first, torch.stack(outs), torch.cat(fed, 1), t1 - t0,
+            time.perf_counter() - t1)
+
+
+def phase_whisper() -> dict[str, int]:
+    """whisper-medium at full width, no cut (0.791 B parameters held; the
+    config counts 0.758 B, leaving out ``pos_embed``, as the reference
+    does), seed-0 weights.  f32 on the masters first: the full prefill
+    through the flash kernel (encoder, self- and cross-attention, 72
+    launches) against the same prefill with positions given (plain
+    everywhere), both runs, first-token logits within PARITY_TOL; the
+    logits after 8 greedy decode steps against a full prefill of the prompt
+    plus those 8 tokens; each run's WHISPER_STEPS greedy tokens.  Then the
+    bf16 copy, the masters dropped: runs a and b, prefill plus
+    WHISPER_STEPS greedy steps, with the flash launches read around each
+    (72 a prefill), wall, tokens/s, peak memory, and greedy agreement with
+    the f32 tokens.  Returns the launches by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import LanguageModel
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config("whisper-medium")
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = LanguageModel(cfg, device="cuda")
+    params = model.init(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[whisper] {cfg.name} full width (no depth cut): "
+        f"{n_params / 1e9:.3f}B params held ({cfg.param_count() / 1e9:.3f}B "
+        f"by the config's count, which leaves out pos_embed), "
+        f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"{WHISPER_ENC_LEN} frames, decoder context {WHISPER_MAX_LEN}")
+    model32 = LanguageModel(cfg.scaled(compute_dtype="float32"), device="cuda")
+    batches = {run: _whisper_batch(run, rows, n, cfg.vocab_size, cfg.d_model)
+               for run, rows, n in WHISPER_RUNS}
+    f32_tokens = {}
+    for run, (tokens, frames) in batches.items():
+        rows, n = tokens.shape
+        before = fa.launches
+        first, steps, fed, _, _ = _whisper_greedy(
+            model32, params, tokens, frames, WHISPER_STEPS, torch.float32)
+        if fa.launches - before != per_prefill:
+            raise AssertionError(f"[whisper] f32 prefill: flash launches "
+                                 f"{fa.launches - before} != {per_prefill}")
+        f32_tokens[run] = fed
+        before = fa.launches
+        plain, _ = model32.prefill(
+            params, {"tokens": tokens, "frames": frames,
+                     "positions": model32._positions(rows, n, None)},
+            model32.init_cache(rows, WHISPER_MAX_LEN, WHISPER_ENC_LEN,
+                               dtype=torch.float32))
+        if fa.launches != before:
+            raise AssertionError("[whisper] the plain path launched flash")
+        err = float((first - plain).abs().max())
+        full, _ = model32.prefill(
+            params, {"tokens": torch.cat([tokens, fed[:, :8]], 1),
+                     "frames": frames},
+            model32.init_cache(rows, WHISPER_MAX_LEN, WHISPER_ENC_LEN,
+                               dtype=torch.float32))
+        dec_err = float((steps[7] - full).abs().max())
+        log(f"[whisper] f32 run {run} ({rows} x {n} tokens): max |flash - "
+            f"plain| first-token logits {err:.3e}; max |decode step 8 - full "
+            f"prefill of prompt + 8| logits {dec_err:.3e} (max |logit| "
+            f"{float(first.abs().max()):.3f}, tol {PARITY_TOL})")
+        if (not bool(torch.isfinite(steps).all()) or err > PARITY_TOL
+                or dec_err > PARITY_TOL):
+            raise AssertionError(f"[whisper] f32 run {run}: {err}, {dec_err}")
     log(f"[mem] {cfg.name} f32 phases: peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     cast = model.cast_for_compute(params)
     del model32, params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    launches = phase_serve(model, cast, fa, _attn_layers(cfg),
-                           lambda stats: 0, prompts,
-                           LONG_MAX_LEN if long else 1024)
+    launches = {}
+    for run, (tokens, frames) in batches.items():
+        rows, n = tokens.shape
+        fa.launches = 0
+        first, steps, fed, pre_s, dec_s = _whisper_greedy(
+            model, cast, tokens, frames, WHISPER_STEPS, torch.bfloat16)
+        launches[f"{cfg.name} prefill {run}"] = fa.launches
+        ok = bool(torch.isfinite(steps).all()) and bool(
+            ((fed >= 0) & (fed < cfg.vocab_size)).all())
+        agree = int((fed == f32_tokens[run]).sum())
+        lead = int((fed == f32_tokens[run]).int().cumprod(1).sum(1).min())
+        log(f"[whisper] bf16 run {run} ({rows} x {n} tokens, "
+            f"{WHISPER_STEPS} greedy steps): prefill {pre_s * 1e3:.2f} ms "
+            f"(time to first token), decode {dec_s:.3f} s "
+            f"({dec_s / WHISPER_STEPS * 1e3:.2f} ms a step), tok/s "
+            f"{rows * WHISPER_STEPS / (pre_s + dec_s):.2f}, flash launches "
+            f"{fa.launches}; greedy tokens equal to f32's {agree}/"
+            f"{fed.numel()} (all rows equal for the first {lead})")
+        if fa.launches != per_prefill or not ok:
+            raise AssertionError(f"[whisper] bf16 run {run}: flash launches "
+                                 f"{fa.launches}, finite {ok}")
     log(f"[mem] {cfg.name} serving: peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _whisper_trace(model, cast, *batches["a"])
     del model, cast
     torch.cuda.empty_cache()
     return launches
+
+
+def _whisper_trace(model, params, tokens, frames, steps: int = 8) -> None:
+    """Where a whisper call's time goes, one run a prefill and then
+    ``steps`` decode steps, each under ``torch.profiler``: the wall, the
+    summed device time of its kernels and copies (the busy share), their
+    count and the largest five by name.  A trace without device events
+    reports the share as not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, n = tokens.shape
+    cache = model.init_cache(rows, WHISPER_MAX_LEN, WHISPER_ENC_LEN)
+
+    def prefill():
+        return model.prefill(params, {"tokens": tokens, "frames": frames},
+                             cache)[0]
+
+    def decode(logits):
+        for t in range(n, n + steps):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            logits, _ = model.decode_step(
+                params, tok, cache, torch.full((rows,), t, dtype=torch.int32,
+                                               device="cuda"))
+        return logits
+
+    logits = prefill()  # warm: the profiled calls run on a built cache
+    torch.cuda.synchronize()
+    for what, fn in (("prefill", prefill), (f"{steps} decode steps",
+                                            lambda: decode(logits))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            log(f"[whisper-trace] {what}: no device events; busy share not "
+                f"measured")
+            continue
+        by_name: dict[str, float] = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        log(f"[whisper-trace] run a {what} under torch.profiler: wall "
+            f"{wall * 1e3:.2f} ms, {len(events)} device events, device time "
+            f"{busy:.2f} ms (busy {busy / (wall * 1e3):.4f}); top: " + "; ".join(
+                f"{ms:.3f} ms {name[:70]}" for name, ms in top))
 
 
 def _kernel_entry(name, source, replaces, launches, rows, library, ptxas,
@@ -900,6 +1262,23 @@ def phase_trace(model, params, kernels: tuple[str, ...],
     return None
 
 
+def _train_extras(cfg, batch: int, seq: int, seed: int) -> dict:
+    """What a batch of ``cfg`` carries beside the tokens, as numpy, from a
+    seed: an encoder-decoder model's frames (B, seq, d); an M-RoPE model's
+    embeds (B, seq, d) and 3-stream positions over a patch grid."""
+    rng = np.random.RandomState(seed)
+    if cfg.enc_dec:
+        return {"frames": rng.standard_normal(
+            (batch, seq, cfg.d_model)).astype(np.float32)}
+    if cfg.pos_type == "mrope":
+        grid = int(math.isqrt(seq // 2))
+        pos = _mm_positions(4, grid, seq - 4 - grid * grid)
+        return {"embeds": (0.02 * rng.standard_normal(
+                    (batch, seq, cfg.d_model))).astype(np.float32),
+                "positions": np.broadcast_to(pos, (3, batch, seq)).copy()}
+    return {}
+
+
 def _train_steps(model, params, batches):
     """Losses and router losses of ``make_train_step`` over ``batches``
     (updates ``params``)."""
@@ -921,7 +1300,9 @@ def _train_steps(model, params, batches):
 def phase_train_parity() -> None:
     """Train steps on the card against the CPU, smoke size, f32 compute
     (the CPU path is the one the CPU tests hold against JAX): 3 steps of
-    ``make_train_step`` from the same seed-0 weights on the same batches;
+    ``make_train_step`` from the same seed-0 weights on the same batches
+    (with seeded frames for whisper, embeds and 3-stream positions for
+    qwen2-vl);
     losses and router losses within TRAIN_TOL relative (the router loss
     non-zero in an MoE model), every parameter after the steps within
     TRAIN_TOL x max(1, max |p|)."""
@@ -938,7 +1319,8 @@ def phase_train_parity() -> None:
         p_gpu = tree_map(lambda t: t.to("cuda", copy=True), p_cpu)
         data = TokenDataset(vocab_size=cfg.vocab_size, seq_len=64,
                             global_batch=2)
-        batches = [data.batch(i) for i in range(3)]
+        batches = [{**data.batch(i), **_train_extras(cfg, 2, 64, i)}
+                   for i in range(3)]
         l_cpu, a_cpu, p_cpu = _train_steps(cpu, p_cpu, batches)
         l_gpu, a_gpu, p_gpu = _train_steps(LanguageModel(cfg, device="cuda"),
                                            p_gpu, batches)
@@ -1233,6 +1615,7 @@ def main() -> None:
     for arch in SERVE_MODELS:
         for engine, n in phase_model(arch).items():
             flash_launches[f"{arch} {engine}"] = n
+    flash_launches.update(phase_whisper())
 
     phase_train_parity()
     phase_train_resume()

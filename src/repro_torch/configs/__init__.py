@@ -15,4 +15,6 @@ from repro_torch.configs import (  # noqa: F401
     minicpm3_4b,
     granite_moe_1b_a400m,
     deepseek_v2_236b,
+    whisper_medium,
+    qwen2_vl_72b,
 )

@@ -23,8 +23,8 @@ Correctness invariants (each guards a real aliasing bug):
   keys;
 * a freed slot's table row is cleared to ``n_pages`` immediately, so decode
   ticks for dead slots write the trash page instead of recycled pages;
-* the dense per-slot leaves (SWA rings) are reset to their ``init_cache``
-  values at allocation time.
+* the dense per-slot leaves (SWA rings, cross caches) are reset to their
+  ``init_cache`` values at allocation time.
 """
 from __future__ import annotations
 
@@ -70,7 +70,8 @@ class PagedKVCache:
     """
 
     def __init__(self, model: LanguageModel, n_slots: int, n_pages: int,
-                 page_size: int, max_pages: int, dtype=torch.bfloat16):
+                 page_size: int, max_pages: int, enc_len: int = 0,
+                 dtype=torch.bfloat16):
         self.model = model
         self.device = model.device
         self.n_slots = n_slots
@@ -79,10 +80,11 @@ class PagedKVCache:
         self.max_pages = max_pages
         self.view_len = max_pages * page_size
         pages = (n_pages, page_size)
-        self.specs = model.cache_specs(n_slots, self.view_len, dtype=dtype,
+        self.specs = model.cache_specs(n_slots, self.view_len,
+                                       enc_len=enc_len, dtype=dtype,
                                        pages=pages)
-        self.cache = model.init_cache(n_slots, self.view_len, dtype=dtype,
-                                      pages=pages)
+        self.cache = model.init_cache(n_slots, self.view_len, enc_len=enc_len,
+                                      dtype=dtype, pages=pages)
         self.table = torch.full((n_slots, max_pages), n_pages,
                                 dtype=torch.int32, device=self.device)
         self._free = list(range(n_pages - 1, -1, -1))  # pop() -> page 0 first
@@ -127,7 +129,8 @@ class PagedKVCache:
     # ------------------------------------------------- device gather/scatter
     def gather_slot(self, slot: int) -> dict:
         """Dense (B=1, view_len, ...) cache view of one slot -- the exact tree
-        ``init_cache(1, view_len)`` would produce, for ``prefill_chunk``."""
+        ``init_cache(1, view_len, enc_len)`` would produce, for
+        ``prefill_chunk``."""
         return self._gather_impl(self.cache, self.table[slot][None], [slot])
 
     def scatter_slot(self, slot: int, view: dict) -> None:

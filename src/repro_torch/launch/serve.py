@@ -20,6 +20,13 @@ interface:
     too, once per rwkv layer per prefill round.
 
 Both report ``host_syncs`` and device<->host byte counters in their stats.
+
+Neither engine passes encoder frames, as in JAX (whose ``_Prefilling``
+carries ``frames=None`` and whose batcher prefills tokens only): an
+encoder-decoder model (whisper) fails in its first prefill with the
+model's error naming ``batch["frames"]``, and is driven through
+``LanguageModel.prefill`` with ``frames`` and ``decode_step`` instead.
+``enc_len`` sizes the cross caches all the same, as in JAX.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import list_configs
 from repro_torch.launch.paged_kv import PagedKVCache, decompose
 from repro_torch.models import LanguageModel
 from repro_torch.utils import Spec, sync, take_fill, tree_map
@@ -76,7 +84,8 @@ class PagedServingEngine:
                  max_len: int = 256, page_size: int = 16,
                  pool_fraction: float = 1.0, chunk_max: int = 64,
                  drain_every: int = 8, prefill_chunks_per_tick: int = 1,
-                 prefill_group: int = 8, dtype=torch.bfloat16):
+                 prefill_group: int = 8, enc_len: int = 0,
+                 dtype=torch.bfloat16):
         self.model = model
         self.params = model.cast_for_compute(params)
         self.device = model.device
@@ -88,7 +97,7 @@ class PagedServingEngine:
         max_pages = -(-max_len // page_size)
         n_pages = max(1, int(n_slots * max_pages * pool_fraction))
         self.kv = PagedKVCache(model, n_slots, n_pages, page_size, max_pages,
-                               dtype=dtype)
+                               enc_len=enc_len, dtype=dtype)
 
         B, dev, i32 = n_slots, self.device, torch.int32
         self.last_token = torch.zeros((B,), dtype=i32, device=dev)
@@ -349,14 +358,15 @@ def _pct(sorted_vals: list, q: float) -> float:
 
 class ContinuousBatcher:
     def __init__(self, model: LanguageModel, params: dict, n_slots: int = 4,
-                 max_len: int = 256):
+                 max_len: int = 256, enc_len: int = 8):
         self.model = model
         self.params = model.cast_for_compute(params)
         self.device = model.device
         self.n_slots = n_slots
         self.max_len = max_len
-        self.cache = model.init_cache(n_slots, max_len)
-        self._slot_specs = model.cache_specs(1, max_len)
+        self.enc_len = enc_len
+        self.cache = model.init_cache(n_slots, max_len, enc_len)
+        self._slot_specs = model.cache_specs(1, max_len, enc_len)
         self.pos = np.zeros((n_slots,), np.int32)
         self.slot_req: list[Request | None] = [None] * n_slots
         self.last_token = np.zeros((n_slots,), np.int32)
@@ -383,7 +393,7 @@ class ContinuousBatcher:
                 self.slot_req[s] = req
                 # full prefill into a B=1 cache (flash kernel), then copy
                 # the slot in
-                cache1 = self.model.init_cache(1, self.max_len)
+                cache1 = self.model.init_cache(1, self.max_len, self.enc_len)
                 tokens = torch.tensor([req.prompt], dtype=torch.int32,
                                       device=self.device)
                 self.stats_counters["bytes_to_device"] += tokens.nbytes
@@ -450,7 +460,7 @@ class ContinuousBatcher:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--arch", default="gemma-2b", choices=list_configs())
     ap.add_argument("--engine", choices=("paged", "dense"), default="paged")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
@@ -458,6 +468,7 @@ def main() -> None:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--drain-every", type=int, default=8)
+    ap.add_argument("--enc-len", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -475,11 +486,13 @@ def main() -> None:
         eng = PagedServingEngine(model, params, n_slots=args.slots,
                                  max_len=args.max_len,
                                  page_size=args.page_size,
-                                 drain_every=args.drain_every)
+                                 drain_every=args.drain_every,
+                                 enc_len=args.enc_len)
         stats = eng.run(reqs)
     else:
         batcher = ContinuousBatcher(model, params, n_slots=args.slots,
-                                    max_len=args.max_len)
+                                    max_len=args.max_len,
+                                    enc_len=args.enc_len)
         stats = batcher.run(reqs)
     print(f"[serve {args.arch}] {stats}")
 

@@ -23,7 +23,7 @@ from typing import Any
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_configs
 from repro_torch.data import TokenDataset
 from repro_torch.models import LanguageModel
 from repro_torch.optim import AdamW, OptConfig
@@ -39,14 +39,17 @@ def smoke_config(arch: str):
 def make_train_step(model: LanguageModel, opt: AdamW):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradients by autograd, then ``opt.update``,
-    which overwrites ``params`` and the moments in place.  ``metrics`` holds
+    which overwrites ``params`` and the moments in place.  A weight the
+    loss does not read (the token table when ``batch["embeds"]`` replaces
+    it) gets a zero gradient, as under ``jax.grad``.  ``metrics`` holds
     ``train_loss``'s metrics and the optimizer's stats as 0-d device
     tensors, so a step does not wait for the card."""
 
     def train_step(params: dict, opt_state: dict, batch: dict):
         leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
         total, metrics = model.train_loss(params, batch)
-        grads = torch.autograd.grad(total, leaves)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                    materialize_grads=True)
         # drop the graph before the update: the bf16 weight copies it holds
         # are 5 GB at gemma-2b's width
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -69,6 +72,10 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
     only at log steps (every ``log_every`` and the last): ``history`` holds
     those, each with ``step`` and ``wall_s`` since the loop began."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
+    if cfg.enc_dec:  # the reference's train() would fail on batch["frames"]
+        raise ValueError(f"{arch}: train() feeds token batches only, and an "
+                         "encoder-decoder model needs frames; call "
+                         "LanguageModel.train_loss with batch['frames']")
     model = LanguageModel(cfg, device=device)
     opt = AdamW(OptConfig(peak_lr=peak_lr, warmup_steps=max(2, steps // 10),
                           decay_steps=max(steps, 10)))
@@ -126,7 +133,7 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--arch", default="gemma-2b", choices=list_configs())
     ap.add_argument("--full", action="store_true",
                     help="use the full config, not the smoke one")
     ap.add_argument("--steps", type=int, default=50)

@@ -1,18 +1,20 @@
-"""Attention: GQA/MQA/MHA, causal + bidirectional + sliding-window.
+"""Attention: GQA/MQA/MHA, causal + bidirectional + sliding-window, cross.
 
-Port of ``repro.models.attention`` (cross-attention and the mesh-only
-``_shard_aligned_attention`` are later work).  The plain computation is
+Port of ``repro.models.attention`` (the mesh-only
+``_shard_aligned_attention`` is later work).  The plain computation is
 q-chunked so it never holds a full (Sq x Skv) score tensor for long
 prompts; full prefill with contiguous positions goes through the
 hand-written flash kernel instead (``kernels/ops.py``), which computes the
-same function.
+same function: causal self-attention, and non-causal over the encoder's
+frames for the encoder's own layers and the decoder's cross-attention.
 
 KV caches carry an explicit per-slot ``pos`` array (-1 = empty), so full
-caches, ring buffers (SWA) and page pools are uniform: masks always come
-from true token positions.  Caches are updated in place (eager PyTorch has
-no donation; the in-place write is what donation bought in JAX), and every
-write that JAX would drop as out of bounds is made explicit here: a masked
-write for dense caches, a trash page for page pools.
+caches, ring buffers (SWA), cross caches and page pools are uniform: masks
+always come from true token positions (M-RoPE's temporal stream).  Caches
+are updated in place (eager PyTorch has no donation; the in-place write is
+what donation bought in JAX), and every write that JAX would drop as out
+of bounds is made explicit here: a masked write for dense caches, a trash
+page for page pools.
 
 Score precision: the JAX einsums take compute-dtype inputs with
 ``preferred_element_type=float32``; here the operands are upcast before the
@@ -40,16 +42,24 @@ NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 @dataclasses.dataclass
 class ModelCtx:
-    mode: str  # train | prefill | chunk_prefill | decode
-    positions: torch.Tensor  # (B, S) int32
+    mode: str  # train | prefill | chunk_prefill | decode | encode
+    positions: torch.Tensor  # (B, S) int32; or (3, B, S) for mrope
     cache_pos: torch.Tensor | None = None  # (B,) int32 write position (decode)
+    enc_out: torch.Tensor | None = None  # (B, S_enc, d) encoder output
+    enc_positions: torch.Tensor | None = None  # (B, S_enc)
     causal: bool = True
     #: (B, max_pages) int32 block table for paged KV pools (decode only);
     #: entries == n_pages mark unallocated logical pages.
     table: torch.Tensor | None = None
     #: positions are the ``arange`` that ``LanguageModel._positions`` built
-    #: (pos_q = pos_k = 0..S-1 in every row), the case the flash kernel takes
+    #: (pos_q = pos_k = 0..S-1 in every row, and the encoder's frames
+    #: 0..S_enc-1), the case the flash kernel takes
     contiguous: bool = False
+
+    @property
+    def pos2d(self) -> torch.Tensor:
+        """(B, S) positions regardless of mrope (temporal component)."""
+        return self.positions[0] if self.positions.ndim == 3 else self.positions
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +284,12 @@ def init_attention(gen: torch.Generator | None, cfg: ModelConfig, *,
     }
 
 
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int = 0) -> torch.Tensor:
+    return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal, window=window)
+
+
 def apply_attention(
     p: dict,
     cfg: ModelConfig,
@@ -282,20 +298,27 @@ def apply_attention(
     cache: dict | None,
     *,
     window: int = 0,
+    cross: bool = False,
     paged: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     cdt = torch_dtype(cfg.compute_dtype)
     q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(cdt))
+    if cross:
+        o, new_cache = _cross(p, cdt, q, ctx, cache)
+        return torch.einsum("bshk,hkd->bsd", o, p["w_o"].to(cdt)), new_cache
+    pos_q = ctx.pos2d
     k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(cdt))
     v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(cdt))
     if cfg.pos_type in ("rope", "mrope"):
         q = apply_rope(q, ctx.positions, cfg)
         k = apply_rope(k, ctx.positions, cfg)
-    pos_q = ctx.positions
     new_cache = None
-    if cache is None:  # train: attend within the computed seq
-        o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
-                           window=window)
+    if cache is None:  # train / encode: attend within the computed seq
+        if ctx.contiguous:  # the encoder of a full prefill
+            o = _flash(q, k, v, causal=ctx.causal, window=window)
+        else:
+            o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
+                               window=window)
     elif ctx.mode == "decode" and paged:
         # page-pool cache: scatter the new token through the block table,
         # then attend over the slot's gathered pages
@@ -321,11 +344,35 @@ def apply_attention(
     else:  # prefill: attend over the computed seq, persist into the cache
         new_cache = prefill_cache(cache, {"k": k, "v": v}, pos_q)
         if ctx.contiguous:
-            o = kops.flash_attention(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), causal=ctx.causal,
-                                     window=window)
+            o = _flash(q, k, v, causal=ctx.causal, window=window)
         else:
             o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
                                window=window)
     out = torch.einsum("bshk,hkd->bsd", o, p["w_o"].to(cdt))
     return out, new_cache
+
+
+def _cross(p: dict, cdt: torch.dtype, q: torch.Tensor, ctx: ModelCtx,
+           cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+    """Cross-attention (``attention.py:405-420``): K and V come from the
+    encoder output in train, prefill and chunked prefill, and prefill
+    persists them in the cross cache; decode reads them from that cache.
+    Non-causal, no window: only ``pos_k >= 0`` masks.  A full prefill's
+    encoder frames are 0..S_enc-1, all valid, so there the flash kernel
+    computes the same function (``q_offset`` 0); decode and chunked prefill
+    stay on the plain path, as in JAX."""
+    if cache is not None and ctx.mode == "decode":
+        k, v, pos_k = cache["k"], cache["v"], cache["pos"]
+        new_cache = cache
+    else:
+        src = ctx.enc_out
+        k = torch.einsum("bsd,dhk->bshk", src, p["w_k"].to(cdt))
+        v = torch.einsum("bsd,dhk->bshk", src, p["w_v"].to(cdt))
+        pos_k = ctx.enc_positions
+        new_cache = None
+        if cache is not None:  # prefill: persist cross K/V
+            new_cache = prefill_cache(cache, {"k": k, "v": v}, pos_k)
+    if ctx.mode == "prefill" and ctx.contiguous:
+        return _flash(q, k, v, causal=False), new_cache
+    return attention_core(q, k.to(cdt), v.to(cdt), ctx.pos2d, pos_k,
+                          causal=False, window=0), new_cache

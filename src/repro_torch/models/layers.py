@@ -1,4 +1,5 @@
-"""Shared layers: initializers, norms, rotary embeddings, MLPs.
+"""Shared layers: initializers, norms, positions (RoPE, M-RoPE,
+sinusoids), MLPs.
 
 Port of ``repro.models.layers``.  Weights keep the JAX layouts (``(d, ff)``
 MLP matrices, ``(d,)`` norm scales); activations are ``(..., d)``.  Every
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,7 +86,7 @@ def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (split-half / NeoX convention)
+# Positions: RoPE (split-half / NeoX convention), M-RoPE, sinusoids
 # ---------------------------------------------------------------------------
 
 
@@ -98,14 +100,25 @@ def rope_freqs(cfg: ModelConfig, rot_dim: int,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                rot_dim: int | None = None) -> torch.Tensor:
-    """x: (batch, seq, heads, head_dim); positions: (batch, seq) int."""
-    if cfg.pos_type == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
+    """x: (batch, seq, heads, head_dim); positions: (batch, seq) int, or
+    (3, batch, seq) for M-RoPE (temporal / height / width coordinates)."""
     head_dim = x.shape[-1]
     rot = rot_dim if rot_dim is not None else int(head_dim * cfg.rope_fraction)
     rot = min(rot, head_dim)
     inv_freq = rope_freqs(cfg, rot, x.device)
-    angle = positions.float()[..., None] * inv_freq  # (b, s, rot/2)
+    if cfg.pos_type == "mrope":
+        sections = cfg.mrope_sections  # in frequency pairs, summing to rot/2
+        if positions.ndim != 3 or sum(sections) != rot // 2:
+            raise ValueError(f"M-RoPE needs (3, batch, seq) positions and "
+                             f"sections summing to {rot // 2}: got "
+                             f"{tuple(positions.shape)}, {sections}")
+        # each section's pairs take the angle of their own coordinate stream
+        starts = np.cumsum((0,) + tuple(sections))
+        angle = torch.cat([positions[c].float()[..., None]
+                           * inv_freq[starts[c]:starts[c + 1]]
+                           for c in range(len(sections))], dim=-1)
+    else:
+        angle = positions.float()[..., None] * inv_freq  # (b, s, rot/2)
     sin = torch.sin(angle)[..., None, :]  # (b, s, 1, rot/2)
     cos = torch.cos(angle)[..., None, :]
     x1 = x[..., : rot // 2].float()
@@ -116,6 +129,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     if rot < head_dim:
         parts.append(x[..., rot:])
     return torch.cat(parts, dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         dtype: torch.dtype = torch.float32,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """Standard transformer sinusoids (whisper encoder positions): the
+    table is built in float64, as ``repro/models/layers.py:139-145`` builds
+    it with numpy, and cast to ``dtype`` once."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d_model)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(table).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -139,7 +139,7 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
     B, S, _ = x.shape
     q_nope, q_rope = _queries(p, cfg, x, ctx)
     ckv_t, kr_t = _latents(p, cfg, x, ctx)
-    pos_q = ctx.positions
+    pos_q = ctx.pos2d
 
     if ctx.mode == "decode":
         assert cache is not None

@@ -1,6 +1,9 @@
 """LanguageModel: init / train_loss / prefill / prefill_chunk / decode_step
 for the decoder-only attention (standard or MLA, dense or MoE), RG-LRU
-hybrid and RWKV-6 architectures (port of ``repro.models.model``).
+hybrid, RWKV-6, encoder-decoder (whisper: a sinusoidal-position encoder,
+learned decoder positions, cross-attention) and M-RoPE (qwen2-vl: 3-stream
+positions, precomputed ``embeds``) architectures (port of
+``repro.models.model``).
 
 Parameters are a nested dict of tensors keyed exactly as the JAX pytree
 (scanned segments keep their leading ``layers`` axis), so
@@ -19,7 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import ModelCtx
 from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
-                                       torch_dtype)
+                                       sinusoidal_positions, torch_dtype)
 from repro_torch.utils import Spec, tree_map
 
 #: matrices that JAX reads in f32 at every use, never in the compute dtype:
@@ -32,14 +35,14 @@ F32_AT_USE = frozenset({"u", "decay_B", "conv_w", "router"})
 
 class LanguageModel:
     def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
-        if cfg.enc_dec or cfg.pos_type in ("learned", "mrope"):
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder, learned and M-RoPE positions "
-                "are not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.dec_kinds = tfm.layer_kinds(cfg)
+        self.dec_kinds = tfm.layer_kinds(cfg, decoder=cfg.enc_dec)
         self.dec_segments = tfm.plan_segments(cfg, self.dec_kinds)
+        self.enc_segments = []
+        if cfg.enc_dec:
+            self.enc_segments = tfm.plan_segments(
+                cfg, [("attn", False)] * cfg.n_enc_layers)
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> dict:
@@ -55,11 +58,20 @@ class LanguageModel:
         if not cfg.tie_embeddings:
             params["out"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
                                        cfg.param_dtype, device=dev)
+        if cfg.pos_type == "learned":
+            params["pos_embed"] = embed_init(
+                gen, (cfg.max_positions, cfg.d_model), cfg.param_dtype,
+                device=dev)
         if cfg.embed_norm:
             params["embed_ln"] = init_norm(cfg, cfg.d_model, device=dev)
         for i, seg in enumerate(self.dec_segments):
             params[f"seg{i}"] = tfm.init_segment(gen, cfg, seg, device=dev)
         params["final_norm"] = init_norm(cfg, cfg.d_model, device=dev)
+        if cfg.enc_dec:
+            enc = {f"seg{i}": tfm.init_segment(gen, cfg, seg, device=dev)
+                   for i, seg in enumerate(self.enc_segments)}
+            enc["final_norm"] = init_norm(cfg, cfg.d_model, device=dev)
+            params["enc"] = enc
         return params
 
     def param_shapes(self) -> dict:
@@ -78,7 +90,9 @@ class LanguageModel:
         does.  Casting a weight once gives the bits that casting it at every
         use gives, so no number changes, and the f32 masters (10 GB for
         gemma-2b) are not re-read on every step.  The vectors and
-        ``F32_AT_USE`` leaves of the copy are the masters' own tensors."""
+        ``F32_AT_USE`` leaves of the copy are the masters' own tensors.
+        The encoder's segments (``params["enc"]``) are walked as the
+        decoder's: a scanned segment's stacked norm vectors stay f32."""
         cdt = torch_dtype(self.cfg.compute_dtype)
 
         def walk(node: Any, name: str, lead: int) -> Any:
@@ -89,17 +103,23 @@ class LanguageModel:
                 return node.to(cdt)
             return node
 
-        scanned = {f"seg{i}" for i, seg in enumerate(self.dec_segments)
-                   if seg.scanned}
-        return {k: walk(v, k, int(k in scanned)) for k, v in params.items()}
+        def top(tree: dict, segments: list) -> dict:
+            scanned = {f"seg{i}" for i, seg in enumerate(segments)
+                       if seg.scanned}
+            return {k: top(v, self.enc_segments) if k == "enc"
+                    else walk(v, k, int(k in scanned))
+                    for k, v in tree.items()}
+
+        return top(params, self.dec_segments)
 
     def cast_for_train(self, params: dict) -> dict:
         """The compute-dtype weights ``train_loss`` reads: JAX's
         ``_cast_for_compute`` (``repro/models/model.py:140-155``) exactly.
         Every float leaf whose *stored* rank is >= 2 goes to the compute
         dtype, so in a scanned segment the stacked vectors (norm scales
-        ``(L, d)``, ``w0``, ``ln_w``, ``mu_*``) are read in bf16 too, and so
-        are ``u`` and ``decay_B`` -- unlike serving (``cast_for_compute``).
+        ``(L, d)``, ``w0``, ``ln_w``, ``mu_*``; the encoder's too) are read
+        in bf16, and so are ``u`` and ``decay_B`` -- unlike serving
+        (``cast_for_compute``).
         Nothing is cast when the compute dtype is the parameter dtype.  The
         casts are differentiable: gradients reach the f32 masters through
         them."""
@@ -111,9 +131,16 @@ class LanguageModel:
                         params)
 
     # ------------------------------------------------------------- embeddings
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings, or ``embeds`` (B, S, d) from a modality
+        frontend (the stub's precomputed patch embeddings) in their place."""
         cfg = self.cfg
-        x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+        cdt = torch_dtype(cfg.compute_dtype)
+        if embeds is not None:
+            x = embeds.to(cdt)
+        else:
+            x = params["embed"][tokens.long()].to(cdt)
         if cfg.emb_scale:
             x = x * math.sqrt(cfg.d_model)
         if cfg.embed_norm:
@@ -128,10 +155,60 @@ class LanguageModel:
 
     def _positions(self, batch_size: int, seq: int,
                    given: torch.Tensor | None) -> torch.Tensor:
+        """``given``, or 0..seq-1 in every row: (B, S), or three equal
+        streams (3, B, S) for M-RoPE."""
         if given is not None:
             return given
         pos = torch.arange(seq, dtype=torch.int32, device=self.device)
+        if self.cfg.pos_type == "mrope":
+            return pos.expand(3, batch_size, seq)
         return pos.expand(batch_size, seq)
+
+    def _add_positions(self, params: dict, x: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+        """The learned position table's rows (whisper's decoder), added in
+        x's dtype; other position types act inside attention."""
+        if self.cfg.pos_type != "learned":
+            return x
+        return x + params["pos_embed"][pos.long()].to(x.dtype)
+
+    def _frames(self, batch: dict) -> torch.Tensor:
+        if "frames" not in batch:  # the reference fails with a KeyError
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder model: its calls need "
+                "batch['frames'], the (B, S_enc, d_model) frame embeddings "
+                "of its audio frontend")
+        return batch["frames"]
+
+    # --------------------------------------------------------------- encoder
+    def _encode(self, params: dict, frames: torch.Tensor,
+                contiguous: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """The encoder over ``frames`` (``repro/models/model.py:125-136``):
+        sinusoids added in the compute dtype, non-causal self-attention,
+        the encoder's final norm.  Returns (enc_out, enc_positions).
+        ``contiguous`` is the caller's: a full prefill (positions not given)
+        runs the encoder's attention through the flash kernel; training
+        (which needs the gradient) and chunked prefill run it plain."""
+        cfg = self.cfg
+        B, S, _ = frames.shape
+        x = frames.to(torch_dtype(cfg.compute_dtype))
+        x = x + sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)[None]
+        pos = self._positions(B, S, None)
+        ctx = ModelCtx(mode="encode", positions=pos, causal=False,
+                       contiguous=contiguous)
+        for i, seg in enumerate(self.enc_segments):
+            x, _, _ = tfm.apply_segment(params["enc"][f"seg{i}"], cfg, seg, x,
+                                        None, ctx)
+        return apply_norm(params["enc"]["final_norm"], cfg, x), pos
+
+    def _ctx(self, params: dict, batch: dict, contiguous: bool,
+             **kw) -> ModelCtx:
+        """The context of one call, with the encoder's output when the
+        model has one."""
+        if self.cfg.enc_dec:
+            kw["enc_out"], kw["enc_positions"] = self._encode(
+                params, self._frames(batch), contiguous)
+        return ModelCtx(contiguous=contiguous, **kw)
 
     def _backbone(self, params: dict, x: torch.Tensor, caches: Any,
                   ctx: ModelCtx) -> tuple[torch.Tensor, Any, Any]:
@@ -157,7 +234,9 @@ class LanguageModel:
         form and RG-LRU its doubling scan: neither kernel has a backward,
         in JAX or here.  ``aux_loss`` is the MoE router loss summed over the
         layers (0 without experts), and the total is
-        ``loss + router_aux_coef * aux_loss`` (JAX ``model.py:159-200``)."""
+        ``loss + router_aux_coef * aux_loss`` (JAX ``model.py:159-200``).
+        An encoder-decoder model reads ``frames``; ``embeds`` replace the
+        token embeddings (M-RoPE's ``positions`` are then (3, B, S))."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -167,8 +246,9 @@ class LanguageModel:
                                  device=tokens.device)
         params = self.cast_for_train(params)
         pos = self._positions(B, S, batch.get("positions"))
-        ctx = ModelCtx(mode="train", positions=pos)
-        x = self._embed(params, tokens)
+        ctx = self._ctx(params, batch, False, mode="train", positions=pos)
+        x = self._embed(params, tokens, batch.get("embeds"))
+        x = self._add_positions(params, x, pos)
         x, _, aux = self._backbone(params, x, None, ctx)
         logits = self._head(params, x)
 
@@ -184,15 +264,19 @@ class LanguageModel:
         return total, metrics
 
     # ------------------------------------------------------------------ serve
-    def cache_specs(self, batch: int, max_len: int, dtype=torch.bfloat16,
+    def cache_specs(self, batch: int, max_len: int, enc_len: int = 0,
+                    dtype=torch.bfloat16,
                     pages: tuple[int, int] | None = None) -> dict:
         """``pages=(n_pages, page_size)`` swaps full-attention KV caches for
-        shared page pools (no batch dim; see launch/paged_kv.py)."""
-        return {f"seg{i}": tfm.segment_cache_specs(self.cfg, seg, batch,
-                                                   max_len, dtype, pages=pages)
+        shared page pools (no batch dim; see launch/paged_kv.py).  Cross
+        caches hold ``enc_len or max_len`` frames, as in JAX."""
+        return {f"seg{i}": tfm.segment_cache_specs(
+                    self.cfg, seg, batch, max_len, enc_len or max_len, dtype,
+                    pages=pages)
                 for i, seg in enumerate(self.dec_segments)}
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0,
+                   dtype=torch.bfloat16,
                    pages: tuple[int, int] | None = None) -> dict:
         def make(spec: Spec) -> torch.Tensor:
             if spec.dtype == torch.int32:  # slot-position arrays start empty
@@ -200,19 +284,24 @@ class LanguageModel:
                                   device=self.device)
             return torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
 
-        return tree_map(make, self.cache_specs(batch, max_len, dtype,
+        return tree_map(make, self.cache_specs(batch, max_len, enc_len, dtype,
                                                pages=pages))
 
     def prefill(self, params: dict, batch: dict,
                 cache: dict) -> tuple[torch.Tensor, dict]:
-        """batch["tokens"]: (B, S).  Without ``batch["positions"]`` the
-        positions are 0..S-1 and attention runs through the flash kernel."""
+        """batch["tokens"]: (B, S); ``frames`` for an encoder-decoder model,
+        optional ``embeds`` (B, S, d) and ``positions``.  Without
+        ``batch["positions"]`` the positions are 0..S-1 and attention runs
+        through the flash kernel: the decoder's self-attention, and for an
+        encoder-decoder model the encoder's and the cross-attention too."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         given = batch.get("positions")
         pos = self._positions(B, S, given)
-        ctx = ModelCtx(mode="prefill", positions=pos, contiguous=given is None)
-        x = self._embed(params, tokens)
+        ctx = self._ctx(params, batch, given is None, mode="prefill",
+                        positions=pos)
+        x = self._embed(params, tokens, batch.get("embeds"))
+        x = self._add_positions(params, x, pos)
         x, cache, _ = self._backbone(params, x, cache, ctx)
         return self._head(params, x[:, -1:])[:, 0], cache
 
@@ -225,11 +314,15 @@ class LanguageModel:
         over an exact partition of the prompt equals one full ``prefill``.
         Returns the last-position logits and the updated cache."""
         tokens = batch["tokens"]
-        C = tokens.shape[1]
+        B, C = tokens.shape
         pos = (start[:, None].to(torch.int32)
                + torch.arange(C, dtype=torch.int32, device=tokens.device))
-        ctx = ModelCtx(mode="chunk_prefill", positions=pos)
-        x = self._embed(params, tokens)
+        if self.cfg.pos_type == "mrope":
+            pos = pos.expand(3, B, C)
+        ctx = self._ctx(params, batch, False, mode="chunk_prefill",
+                        positions=pos)
+        x = self._embed(params, tokens, batch.get("embeds"))
+        x = self._add_positions(params, x, pos)
         x, cache, _ = self._backbone(params, x, cache, ctx)
         return self._head(params, x[:, -1:])[:, 0], cache
 
@@ -239,9 +332,13 @@ class LanguageModel:
         """tokens: (B, 1); pos: (B,) current positions (0-based, -1 =
         inactive slot).  ``table`` is the (B, max_pages) block table when
         ``cache`` holds paged pools."""
+        B = tokens.shape[0]
         positions = pos[:, None].to(torch.int32)
+        if self.cfg.pos_type == "mrope":
+            positions = positions.expand(3, B, 1)
         ctx = ModelCtx(mode="decode", positions=positions, cache_pos=pos,
                        table=table)
         x = self._embed(params, tokens)
+        x = self._add_positions(params, x, positions)
         x, cache, _ = self._backbone(params, x, cache, ctx)
         return self._head(params, x)[:, 0], cache

@@ -1,12 +1,12 @@
 """Block composition: per-layer kinds -> segments.
 
 Port of ``repro.models.transformer`` for attention layers (``attn``/``swa``,
-standard or MLA) and RG-LRU layers (``rglru``), each followed by a dense
-MLP or, in MoE layers, the routed experts plus any shared experts, and for
-RWKV-6 layers (``rwkv6``: time mix, then channel mix); the cross-attention
-kind is a later slice and raises ``NotImplementedError``.  Every layer
-returns its router loss (0 outside MoE layers), summed up the stack as in
-JAX.
+standard or MLA), encoder-decoder decoder layers (``xattn``: causal
+self-attention, then cross-attention over the encoder output) and RG-LRU
+layers (``rglru``), each followed by a dense MLP or, in MoE layers, the
+routed experts plus any shared experts, and for RWKV-6 layers (``rwkv6``:
+time mix, then channel mix).  Every layer returns its router loss (0
+outside MoE layers), summed up the stack as in JAX.
 
 Layers are grouped into *segments* as in JAX: a maximal run whose cyclic
 super-block repeats >= 2 times is "scanned" -- its weights and caches carry
@@ -45,7 +45,10 @@ class Segment:
     scanned: bool
 
 
-def layer_kinds(cfg: ModelConfig) -> list[LayerKind]:
+def layer_kinds(cfg: ModelConfig, decoder: bool = False) -> list[LayerKind]:
+    """The decoder of an encoder-decoder model is all ``xattn`` layers."""
+    if decoder:
+        return [("xattn", False)] * cfg.n_layers
     kinds = []
     for i, t in enumerate(cfg.layer_types()):
         moe = (cfg.n_experts > 0 and i >= cfg.first_dense_layers
@@ -75,8 +78,8 @@ def plan_segments(cfg: ModelConfig, kinds: list[LayerKind]) -> list[Segment]:
 
 
 def _check_kind(kind: LayerKind) -> None:
-    if kind[0] not in ("attn", "swa", "rglru", "rwkv6"):
-        raise NotImplementedError(f"layer kind {kind} is not ported yet")
+    if kind[0] not in ("attn", "swa", "xattn", "rglru", "rwkv6"):
+        raise ValueError(f"unknown layer kind {kind}")
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +91,8 @@ def init_layer(gen: torch.Generator | None, cfg: ModelConfig, kind: LayerKind,
                *, stack: int = 0, device: torch.device | str = "cuda") -> dict:
     """The layer's weight tree, JAX's ``init_layer`` key for key: an MoE
     layer holds ``moe`` (and ``shared`` with shared experts) where the
-    others hold ``mlp``."""
+    others hold ``mlp``; an ``xattn`` layer holds ``norm_x`` and the
+    cross-attention ``cross`` beside its self-attention ``core``."""
     _check_kind(kind)
     t, is_moe = kind
     kw = dict(stack=stack, device=device)
@@ -97,6 +101,10 @@ def init_layer(gen: torch.Generator | None, cfg: ModelConfig, kind: LayerKind,
         p["core"] = rec_mod.init_rwkv_time_mix(gen, cfg, **kw)
     elif t == "rglru":
         p["core"] = rec_mod.init_rglru(gen, cfg, **kw)
+    elif t == "xattn":
+        p["core"] = attn_mod.init_attention(gen, cfg, **kw)
+        p["norm_x"] = init_norm(cfg, cfg.d_model, **kw)
+        p["cross"] = attn_mod.init_attention(gen, cfg, **kw)
     elif cfg.use_mla:
         p["core"] = mla_mod.init_mla(gen, cfg, **kw)
     else:
@@ -115,13 +123,19 @@ def init_layer(gen: torch.Generator | None, cfg: ModelConfig, kind: LayerKind,
 
 
 def cache_specs_for_kind(cfg: ModelConfig, kind: LayerKind, batch: int,
-                         max_len: int, dtype,
+                         max_len: int, enc_len: int, dtype,
                          pages: tuple[int, int] | None = None) -> dict:
     """``pages=(n_pages, page_size)`` swaps full-attention KV caches for
-    shared page pools; SWA rings, MLA latents and recurrent states stay
-    slot-dense (O(window), compressed and O(1) per slot)."""
+    shared page pools; SWA rings, cross caches (``enc_len`` frames), MLA
+    latents and recurrent states stay slot-dense (O(window), O(enc_len),
+    compressed and O(1) per slot), and so does an ``xattn`` layer's self
+    cache, as in JAX."""
     _check_kind(kind)
     t, _ = kind
+    if t == "xattn":
+        return {name: attn_mod.kv_cache_specs(batch, size, cfg.n_kv_heads,
+                                              cfg.head_dim, cfg.head_dim, dtype)
+                for name, size in (("self", max_len), ("cross", enc_len))}
     if t == "rwkv6":
         return rec_mod.rwkv_state_specs(batch, cfg)
     if t == "rglru":
@@ -164,7 +178,16 @@ def apply_layer(p: dict, cfg: ModelConfig, kind: LayerKind, x: torch.Tensor,
         y, cache = rec_mod.apply_rwkv_channel_mix(p["mlp"], cfg, h, cache,
                                                   ctx.mode, active=active)
         return x + y, cache, aux
-    if t == "rglru":
+    if t == "xattn":
+        y, _ = attn_mod.apply_attention(
+            p["core"], cfg, h, ctx, None if cache is None else cache["self"])
+        x = x + y
+        hx = apply_norm(p["norm_x"], cfg, x)
+        y, _ = attn_mod.apply_attention(
+            p["cross"], cfg, hx, ctx, None if cache is None else cache["cross"],
+            cross=True)
+        new_cache = cache
+    elif t == "rglru":
         y, new_cache = rec_mod.apply_rglru(p["core"], cfg, h, cache, ctx.mode,
                                            active=_active_mask(ctx))
     elif cfg.use_mla:  # slot-dense latents, paged engine or not
@@ -201,11 +224,11 @@ def init_segment(gen: torch.Generator | None, cfg: ModelConfig, seg: Segment,
 
 
 def segment_cache_specs(cfg: ModelConfig, seg: Segment, batch: int,
-                        max_len: int, dtype,
+                        max_len: int, enc_len: int, dtype,
                         pages: tuple[int, int] | None = None) -> dict:
     per_block = {
-        f"sub{i}": cache_specs_for_kind(cfg, kind, batch, max_len, dtype,
-                                        pages=pages)
+        f"sub{i}": cache_specs_for_kind(cfg, kind, batch, max_len, enc_len,
+                                        dtype, pages=pages)
         for i, kind in enumerate(seg.kinds)
     }
     if not seg.scanned:

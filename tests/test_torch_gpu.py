@@ -3,8 +3,11 @@ its bodies) against their plain versions, on the card, the flash kernel
 also at the sliding-window models' full prefill shapes and at the MLA and
 MoE models' (minicpm3-4b's D 96 / Dv 64, granite-moe-1b-a400m's D 64); the
 sliding-window, MLA and MoE smoke models' prefill and decode on the card
-against the CPU; and train steps on the card against the same steps on
-the CPU, which launch neither kernel.
+against the CPU; the encoder-decoder path's non-causal shapes (whisper's
+encoder and cross-attention, 1500 keys: a ragged last key tile) and
+qwen2-vl's GQA 64/8 at D 128; whisper's smoke prefill then decode on the
+card against a full prefill and against the CPU; and train steps on the
+card against the same steps on the CPU, which launch neither kernel.
 
 Run on a machine with an NVIDIA card (no JAX needed there):
 
@@ -126,6 +129,76 @@ def test_flash_mla_moe_prefill_matches_plain_on_gpu(case, body):
     assert fa.launches == before + 1
     ref = fa.flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+# whisper-medium's full prefill, non-causal over 1500 encoder frames (not a
+# multiple of the 64-key tile): the cross-attention of 224 decoder tokens
+# (Sq != Skv) and the encoder's self-attention, MHA 16/16 at D 64; and
+# qwen2-vl-72b's causal GQA 64/8 at D 128
+ENCDEC_MROPE_CASES = [
+    (2, 224, 1500, 16, 16, 64, 64, False, 0, 0, 1.0, torch.bfloat16),
+    (4, 1500, 1500, 16, 16, 64, 64, False, 0, 0, 1.0, torch.bfloat16),
+    (1, 1000, 1000, 64, 8, 128, 128, True, 0, 0, 1.0, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ENCDEC_MROPE_CASES,
+                         ids=["whisper_cross", "whisper_encoder", "qwen2vl"])
+def test_flash_encdec_mrope_prefill_matches_plain_on_gpu(case):
+    """The new serving shapes against the plain version on the card, 2e-2
+    in bf16, through the wgmma body; the non-causal cases split no row
+    past Skv (their last key tile is masked at 1500)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(case)
+    kw = dict(kw, residual=None)
+    assert fa.select_body(q.dtype, case[5], case[6], case[5] ** -0.5) == "wgmma"
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_whisper_smoke_prefill_then_decode_on_card():
+    """whisper smoke in f32 on the card (the flash kernel's FMA body:
+    encoder, self and cross, 3 launches a layer): prefill with frames, 4
+    decode steps, against a full prefill of the prompt plus those tokens
+    on the card, and against the same steps on the CPU, 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    cfg = smoke_config("whisper-medium").scaled(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = LanguageModel(cfg, device="cpu").init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                           dtype=torch.int32)
+    frames = torch.randn((2, 30, cfg.d_model), generator=gen)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = LanguageModel(cfg, device=dev)
+        params = tree_map(lambda t: t.to(dev), p_cpu)
+        toks, fr = tokens.to(dev), frames.to(dev)
+        cache = model.init_cache(2, 32, enc_len=30, dtype=torch.float32)
+        before = fa.launches
+        logits, cache = model.prefill(params, {"tokens": toks[:, :20],
+                                               "frames": fr}, cache)
+        per = cfg.n_enc_layers + 2 * cfg.n_layers
+        assert fa.launches - before == (per if dev == "cuda" else 0)
+        steps = [logits]
+        for t in range(20, 24):
+            logits, cache = model.decode_step(
+                params, toks[:, t:t + 1], cache,
+                torch.full((2,), t, dtype=torch.int32, device=dev))
+            steps.append(logits)
+        full, _ = model.prefill(params, {"tokens": toks, "frames": fr},
+                                model.init_cache(2, 32, enc_len=30,
+                                                 dtype=torch.float32))
+        torch.testing.assert_close(steps[-1], full, rtol=1e-4, atol=1e-4)
+        outs[dev] = torch.stack(steps).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -8,9 +8,11 @@ recurrentgemma-9b (RG-LRU, RG-LRU, local attention: the 4-layer smoke, all
 unrolled, and a 7-layer one whose first 6 layers form a scanned segment of
 stacked RG-LRU leaves), minicpm3-4b (MLA: latent caches, slot-dense in the
 paged cache), granite-moe-1b-a400m (MoE, 4 experts top-2 at smoke width)
-and deepseek-v2-236b (MLA + MoE + a shared expert after a dense first
-layer) smoke configs in f32 compute, JAX weights carried
-across with ``repro_torch.bridge``.  Each case reproduces a
+deepseek-v2-236b (MLA + MoE + a shared expert after a dense first
+layer), whisper-medium (encoder-decoder: frames through a sinusoidal
+encoder, learned decoder positions, cross caches) and qwen2-vl-72b (M-RoPE,
+its three streams equal here) smoke configs in f32 compute, JAX weights
+carried across with ``repro_torch.bridge``.  Each case reproduces a
 ``tests/test_decode_parity.py`` test against the JAX full forward, at that
 file's bounds: 2e-4 on prefill logits, 3e-4 on decode logits.  The banded
 sliding-window path (prompts longer than window + q-chunk) is held against
@@ -40,7 +42,9 @@ ATTN_ARCHS = ["gemma-2b", "deepseek-7b", "h2o-danube-1.8b"]
 #: "arch@L": the arch's smoke config at L layers
 RG_ARCHS = ["recurrentgemma-9b", "recurrentgemma-9b@7"]
 MLA_MOE_ARCHS = ["minicpm3-4b", "granite-moe-1b-a400m", "deepseek-v2-236b"]
-ARCHS = ATTN_ARCHS + ["rwkv6-1.6b"] + RG_ARCHS + MLA_MOE_ARCHS
+ENCDEC_MROPE_ARCHS = ["whisper-medium", "qwen2-vl-72b"]
+ARCHS = (ATTN_ARCHS + ["rwkv6-1.6b"] + RG_ARCHS + MLA_MOE_ARCHS
+         + ENCDEC_MROPE_ARCHS)
 B, S = 2, 24
 
 
@@ -71,6 +75,22 @@ def _moved_rglru(tree, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
+def _frames(arch):
+    """An encoder-decoder arch's frames (B, S, d), as
+    test_decode_parity.py draws them; {} for the others."""
+    cfg = _smoke("repro", arch)
+    if not cfg.enc_dec:
+        return {}
+    rng = np.random.RandomState(1)
+    return {"frames": rng.randn(B, S, cfg.d_model).astype(np.float32)}
+
+
+def _extra(arch, rows=B):
+    """The port's batch entries beside the tokens (whisper's frames)."""
+    return {k: torch.from_numpy(v[:rows]) for k, v in _frames(arch).items()}
+
+
+@functools.lru_cache(maxsize=None)
 def _setup(arch):
     """(port model, bridged params, tokens, JAX full-forward logits)."""
     jcfg, tcfg = _configs(arch)
@@ -84,8 +104,16 @@ def _setup(arch):
 
     def full_logits(p):
         pos = jmodel._positions(B, S, None)
+        ctx = JaxCtx(mode="train", positions=pos)
+        if jcfg.enc_dec:
+            enc_out, enc_pos = jmodel._encode(
+                p, jnp.asarray(_frames(arch)["frames"]))
+            ctx = JaxCtx(mode="train", positions=pos, enc_out=enc_out,
+                         enc_positions=enc_pos)
         x = jmodel._embed(p, jnp.asarray(tokens))
-        x, _, _ = jmodel._backbone(p, x, None, JaxCtx(mode="train", positions=pos))
+        if jcfg.pos_type == "learned":
+            x = x + jnp.take(p["pos_embed"], pos, axis=0).astype(x.dtype)
+        x, _, _ = jmodel._backbone(p, x, None, ctx)
         return jmodel._head(p, x)
 
     ref = np.asarray(jax.jit(full_logits)(jparams))  # (B, S, V)
@@ -100,8 +128,10 @@ def test_full_forward_matches_jax(arch):
     model, params, tokens, ref = _setup(arch)
     t = torch.from_numpy(tokens)
     pos = model._positions(B, S, None)
-    x = model._embed(params, t)
-    x, _, _ = model._backbone(params, x, None, ModelCtx(mode="train", positions=pos))
+    ctx = model._ctx(params, {"tokens": t, **_extra(arch)}, False,
+                     mode="train", positions=pos)
+    x = model._add_positions(params, model._embed(params, t), pos)
+    x, _, _ = model._backbone(params, x, None, ctx)
     np.testing.assert_allclose(model._head(params, x).numpy(), ref,
                                rtol=2e-4, atol=2e-4)
 
@@ -113,8 +143,9 @@ def test_decode_matches_full_forward(arch):
     model, params, tokens, ref = _setup(arch)
     t = torch.from_numpy(tokens)
     S0 = S // 2
-    cache = model.init_cache(B, max_len=S, dtype=torch.float32)
-    logits, cache = model.prefill(params, {"tokens": t[:, :S0]}, cache)
+    cache = model.init_cache(B, max_len=S, enc_len=S, dtype=torch.float32)
+    logits, cache = model.prefill(params, {"tokens": t[:, :S0],
+                                           **_extra(arch)}, cache)
     np.testing.assert_allclose(logits.numpy(), ref[:, S0 - 1], rtol=2e-4,
                                atol=2e-4)
     for step in range(S0, S):
@@ -134,6 +165,7 @@ def test_paged_chunked_decode_matches_full_forward(arch):
     model, params, tokens, ref = _setup(arch)
     t = torch.from_numpy(tokens[:1])
     kv = PagedKVCache(model, n_slots=2, n_pages=8, page_size=8, max_pages=4,
+                      enc_len=S if model.cfg.enc_dec else 0,
                       dtype=torch.float32)
     assert kv.alloc(0, 10) and kv.alloc(1, S + 2)
     S0 = S // 2
@@ -142,7 +174,7 @@ def test_paged_chunked_decode_matches_full_forward(arch):
     for c in decompose(S0, 8):
         view = kv.gather_slot(1)
         logits, view = model.prefill_chunk(
-            params, {"tokens": t[:, start:start + c]}, view,
+            params, {"tokens": t[:, start:start + c], **_extra(arch, 1)}, view,
             torch.full((1,), start, dtype=torch.int32))
         kv.scatter_slot(1, view)
         start += c
@@ -159,7 +191,8 @@ def test_paged_chunked_decode_matches_full_forward(arch):
             err_msg=f"{arch}: paged decode step {step} diverged")
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + RG_ARCHS[:1] + MLA_MOE_ARCHS[:2])
+@pytest.mark.parametrize("arch", ATTN_ARCHS + RG_ARCHS[:1] + MLA_MOE_ARCHS[:2]
+                         + ["qwen2-vl-72b"])
 def test_prefill_takes_flash_path(arch, monkeypatch):
     """Full prefill with implicit positions calls the flash dispatch once per
     attention layer; explicit positions and chunked prefill never do."""
@@ -212,14 +245,16 @@ def test_prefill_takes_wkv_kernel_path(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b"] + RG_ARCHS
-                         + ["granite-moe-1b-a400m"])
+                         + ["granite-moe-1b-a400m"] + ENCDEC_MROPE_ARCHS)
 def test_cast_for_compute_changes_no_number(arch):
     """In bf16 compute, serving on ``cast_for_compute(params)`` equals
     serving on the f32 masters bit for bit: the load-time copy casts exactly
     the weights that every use casts.  Every leaf is moved off its init
     value first (norm scales, w0, u, RG-LRU's zero-init conv ...) so a
     weight rounded to bf16 where the model reads it in f32 would show
-    (RG-LRU's ``conv_w``, scanned or not; the MoE ``router``)."""
+    (RG-LRU's ``conv_w``, scanned or not; the MoE ``router``; whisper's
+    encoder, a scanned segment whose stacked layernorm scales and biases
+    are vectors per layer)."""
     cfg = _smoke("repro_torch", arch)
     assert cfg.compute_dtype == "bfloat16"
     model = LanguageModel(cfg, device="cpu")
@@ -232,8 +267,9 @@ def test_cast_for_compute_changes_no_number(arch):
         np.random.RandomState(1).randint(0, cfg.vocab_size, (B, S)))
     runs = []
     for p in (masters, cast):
-        cache = model.init_cache(B, max_len=S)
-        logits, cache = model.prefill(p, {"tokens": t[:, :S - 2]}, cache)
+        cache = model.init_cache(B, max_len=S, enc_len=S)
+        logits, cache = model.prefill(p, {"tokens": t[:, :S - 2],
+                                          **_extra(arch)}, cache)
         outs = [logits]
         for step in range(S - 2, S):
             logits, cache = model.decode_step(
@@ -276,7 +312,8 @@ def test_bridge_rejects_missing_extra_and_misshaped_leaves():
 def test_init_matches_jax_tree_shapes():
     """The port's own seeded init draws exactly the JAX tree (keys, shapes,
     dtypes, stacked layers axis) -- what bridging the other way relies on."""
-    for arch in ("gemma-2b", "rwkv6-1.6b", *RG_ARCHS, *MLA_MOE_ARCHS):
+    for arch in ("gemma-2b", "rwkv6-1.6b", *RG_ARCHS, *MLA_MOE_ARCHS,
+                 *ENCDEC_MROPE_ARCHS):
         jcfg, tcfg = _configs(arch)
         jtree = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
                              JaxLM(jcfg).abstract_params())
