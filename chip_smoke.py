@@ -22,7 +22,11 @@ back to the CPU):
                minicpm3-4b's MLA prefill (MHA 40/40, D 96 / Dv 64: mma.sync)
                and granite-moe-1b-a400m's (GQA 16/8, D 64: wgmma); at
                whisper-medium's non-causal encoder (B 4 x 1500 frames) and
-               cross-attention (224 queries over 1500 frames), qwen2-vl-72b's
+               cross-attention (224, and 4 rows of 4, queries over 1500
+               frames; each also held to the relative limit REL_TOL, which
+               the plain version with the ragged last key tile left
+               unmasked and zero-filled must fail) and its decoder's causal
+               self-attention (4 x 4, 224), qwen2-vl-72b's
                GQA 64/8 at D 128 and deepseek-v2-236b's MLA at D 192 /
                Dv 128 with 128 heads (all wgmma); the
                WKV scan's chunked body at every WKV case, its step body
@@ -89,8 +93,11 @@ back to the CPU):
                path, and 8 decode steps against a full prefill of the prompt
                plus those tokens; then bf16, run a (4 rows x 4 tokens) and
                run b (1 x 224), each prefill plus 64 greedy steps, with
-               flash launches read around each, wall, tokens/s, peak memory
-               and greedy agreement with f32;
+               flash launches read around each, wall, tokens/s, peak memory,
+               greedy agreement with f32 (each row's first step that
+               parts), and the first-token logits against the same bf16
+               prefill on the plain path (within WHISPER_BF16_REL); one
+               run a prefill and 8 decode steps under ``torch.profiler``;
 9. train    -- the serving models freed: gemma-2b, rwkv6-1.6b,
                h2o-danube-1.8b, recurrentgemma-9b, minicpm3-4b,
                granite-moe-1b-a400m, deepseek-v2-236b, whisper-medium (with
@@ -134,6 +141,13 @@ import torch  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# beside TOL, each flash case's relative error over its whole output,
+# ||out - plain|| / ||plain||: at D 64 over 1500 keys a non-causal output is
+# of order 0.04, where TOL's absolute term alone would pass a fault of a
+# few percent (an unmasked, zero-filled ragged key tile shifts the softmax
+# normalizer by 36 / (1500 e^0.5), 1.5 %); limits from sound runs' readings
+# (PERF.md)
+REL_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:45"
 WKV_SOURCE = "src/repro_torch/kernels/csrc/linear_scan.cu"
@@ -175,9 +189,11 @@ KERNEL_CASES = [
      False, torch.bfloat16),
     ("granite_prefill", 1, 1000, 1000, 16, 8, 64, 64, True, 0, 0, 1.0, False,
      torch.bfloat16),
-    # whisper-medium's full prefill: the encoder over 1500 frames (B 4,
+        # whisper-medium's full prefill: the encoder over 1500 frames (B 4,
     # MHA 16/16, D 64, non-causal; 1500 is not a multiple of the 64-key
-    # tile) and the cross-attention of run b's 224-token prompt over them;
+    # tile) and the cross-attention of run b's 224-token prompt over them,
+    # then run a's (4 rows of 4 tokens: split-KV and the merge kernel) and
+    # the decoder's causal self-attention of runs a and b;
     # qwen2-vl-72b's prefill of the trace's 1000-token prompt (GQA 64/8,
     # D 128) and deepseek-v2-236b's MLA prefill (MHA 128/128, D = nope +
     # rope = 192, Dv 128), all on the wgmma body
@@ -185,6 +201,12 @@ KERNEL_CASES = [
      False, torch.bfloat16),
     ("whisper_cross_prefill", 1, 224, 1500, 16, 16, 64, 64, False, 0, 0, 1.0,
      False, torch.bfloat16),
+    ("whisper_cross_a", 4, 4, 1500, 16, 16, 64, 64, False, 0, 0, 1.0, False,
+     torch.bfloat16),
+    ("whisper_self_a", 4, 4, 4, 16, 16, 64, 64, True, 0, 0, 1.0, False,
+     torch.bfloat16),
+    ("whisper_self_b", 1, 224, 224, 16, 16, 64, 64, True, 0, 0, 1.0, False,
+     torch.bfloat16),
     ("qwen2vl_prefill", 1, 1000, 1000, 64, 8, 128, 128, True, 0, 0, 1.0,
      False, torch.bfloat16),
     ("dsv2_mla_prefill", 1, 1000, 1000, 128, 128, 192, 128, True, 0, 0, 1.0,
@@ -230,6 +252,10 @@ PATCH_GRID, MM_TEXT = 16, 8
 # run a: 4 rows of a 4-token prompt, run b: one 224-token prompt
 WHISPER_ENC_LEN, WHISPER_MAX_LEN, WHISPER_STEPS = 1500, 448, 64
 WHISPER_RUNS = (("a", 4, 4), ("b", 1, 224))  # (run, rows, prompt tokens)
+# bf16 first-token logits, the prefill through flash against the same
+# prefill with positions given (plain everywhere), relative over the whole
+# (rows, vocab) array; limit from sound runs' readings (PERF.md)
+WHISPER_BF16_REL = 3e-2
 # RG-LRU's conv weights, drawn at this scale x a seeded normal: the config's
 # init sets them to zero (as JAX's), which zeros every RG-LRU output
 CONV_SCALE = 0.5
@@ -295,6 +321,26 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return s.elapsed_time(e) / reps
 
 
+def _profiled(fn, cpu: bool = False):
+    """One call of ``fn`` under ``torch.profiler`` (CUDA activity, and the
+    host's with ``cpu``): (what it returned, its wall in s up to a sync, its
+    device events, their device ms summed by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    return out, wall, events, by_name
+
+
 def device_ms(fn, reps: int = 5, tries: int = 3,
               by_kernel: dict | None = None) -> float | None:
     """Device time per call from a ``torch.profiler`` trace: the summed time
@@ -305,25 +351,22 @@ def device_ms(fn, reps: int = 5, tries: int = 3,
     not measured (None) -- a supplementary number, not a check."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
+    def calls() -> None:
+        for _ in range(reps):
+            fn()
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        us = sum(e.device_time for e in events)
-        if us > 0:
+        _, _, _, by_name = _profiled(calls)
+        ms = sum(by_name.values())
+        if ms > 0:
             if by_kernel is not None:
-                for e in events:
-                    m = re.search(r"\w+_kernel\w*?(?:<[^>]*>|I\w+?E(?=E))?", e.name)
-                    key = m.group(0) if m else e.name[:60]
-                    by_kernel[key] = by_kernel.get(key, 0.0) + e.device_time / reps / 1e3
-            return us / reps / 1e3
+                for name, t in by_name.items():
+                    m = re.search(r"\w+_kernel\w*?(?:<[^>]*>|I\w+?E(?=E))?", name)
+                    key = m.group(0) if m else name[:60]
+                    by_kernel[key] = by_kernel.get(key, 0.0) + t / reps
+            return ms / reps
     log(f"[kernels] device_ms: {tries} profiler traces held no device "
         f"time; not measured")
     return None
@@ -409,6 +452,29 @@ def _visible(case) -> torch.Tensor:
     return mask
 
 
+def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """||out - ref|| / ||ref|| over the whole tensor, in f32."""
+    ref = ref.float()
+    return float((out.float() - ref).norm() / ref.norm())
+
+
+def _planted_ragged(case, q, k, v, ref, kw) -> float | None:
+    """The relative error of a kernel that left a ragged last key tile
+    unmasked, TMA zero-filling the keys past Skv: the plain version over K
+    and V zero-padded to a whole tile.  None where no tile is ragged or the
+    causal mask hides the pad anyway."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    Skv, causal = case[3], case[8]
+    pad = -Skv % fa.BLOCK_K
+    if causal or not pad:
+        return None
+    kp, vp = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    return _rel_err(fa.flash_attention_plain(q, kp, vp, **kw), ref)
+
+
 def _bound(case, q, k, v, out, res) -> tuple[float, str]:
     """Least time for this call: FLOPs of the unmasked (query, key) pairs
     this run's masks leave, or the bytes moved once, whichever is longer."""
@@ -473,12 +539,19 @@ def phase_kernels() -> list[dict]:
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, **kw)
         diff = (out.float() - ref.float()).abs()
-        err = float(diff.max())
-        tol = TOL[dt]
+        err, rel = float(diff.max()), _rel_err(out, ref)
+        tol, rel_tol = TOL[dt], REL_TOL[dt]
+        planted = _planted_ragged(case, q, k, v, ref, kw)
         if not bool(torch.isfinite(out).all()) or bool(
-                (diff > tol + tol * ref.float().abs()).any()):
+                (diff > tol + tol * ref.float().abs()).any()) or rel > rel_tol:
             raise AssertionError(f"[kernels] {name}: kernel disagrees with its "
-                                 f"plain version, max abs err {err}")
+                                 f"plain version, max abs err {err}, relative "
+                                 f"{rel} (limit {rel_tol}; an unmasked ragged "
+                                 f"tile would give {planted})")
+        if planted is not None and planted <= rel_tol:
+            raise AssertionError(f"[kernels] {name}: the relative limit "
+                                 f"{rel_tol} passes an unmasked ragged tile "
+                                 f"({planted})")
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
         dev_kernels = {}
         dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw),
@@ -493,7 +566,8 @@ def phase_kernels() -> list[dict]:
             torch.cuda.synchronize()
             prev_diff = (prev_out.float() - ref.float()).abs()
             prev_err = float(prev_diff.max())
-            if bool((prev_diff > tol + tol * ref.float().abs()).any()):
+            if bool((prev_diff > tol + tol * ref.float().abs()).any()) or (
+                    _rel_err(prev_out, ref) > rel_tol):
                 raise AssertionError(f"[kernels] {name}: mma body disagrees, "
                                      f"max abs err {prev_err}")
             prev = dict(
@@ -513,7 +587,8 @@ def phase_kernels() -> list[dict]:
         row = dict(case=name, shape=[B, Sq, Skv, Hq, Hkv, D, Dv],
                    dtype=str(dt).replace("torch.", ""), causal=causal,
                    window=window, q_offset=q_offset, max_abs_err=err,
-                   tol=tol, body=body,
+                   tol=tol, rel_err=rel, rel_tol=rel_tol,
+                   planted_ragged_rel_err=planted, body=body,
                    splits=len(plan.merges) if plan else 0,
                    items=len(plan.items) if plan else None,
                    critical_tiles=max(it[4] - it[3] for it in plan.items)
@@ -1141,17 +1216,29 @@ def phase_whisper() -> dict[str, int]:
         ok = bool(torch.isfinite(steps).all()) and bool(
             ((fed >= 0) & (fed < cfg.vocab_size)).all())
         agree = int((fed == f32_tokens[run]).sum())
-        lead = int((fed == f32_tokens[run]).int().cumprod(1).sum(1).min())
+        leads = (fed == f32_tokens[run]).int().cumprod(1).sum(1).tolist()
+        plain, _ = model.prefill(
+            cast, {"tokens": tokens, "frames": frames,
+                   "positions": model._positions(rows, n, None)},
+            model.init_cache(rows, WHISPER_MAX_LEN, WHISPER_ENC_LEN,
+                             dtype=torch.bfloat16))
+        rel = _rel_err(first, plain)
+        top = first.float().topk(2, dim=-1).values
         log(f"[whisper] bf16 run {run} ({rows} x {n} tokens, "
             f"{WHISPER_STEPS} greedy steps): prefill {pre_s * 1e3:.2f} ms "
             f"(time to first token), decode {dec_s:.3f} s "
             f"({dec_s / WHISPER_STEPS * 1e3:.2f} ms a step), tok/s "
             f"{rows * WHISPER_STEPS / (pre_s + dec_s):.2f}, flash launches "
             f"{fa.launches}; greedy tokens equal to f32's {agree}/"
-            f"{fed.numel()} (all rows equal for the first {lead})")
-        if fa.launches != per_prefill or not ok:
+            f"{fed.numel()}, each row's equal for its first {leads}; "
+            f"first-token logits flash against plain: relative {rel:.3e} "
+            f"(limit {WHISPER_BF16_REL}), max abs "
+            f"{float((first - plain).abs().max()):.3e}, top-2 margins "
+            f"{(top[:, 0] - top[:, 1]).tolist()}")
+        if fa.launches != per_prefill or not ok or rel > WHISPER_BF16_REL:
             raise AssertionError(f"[whisper] bf16 run {run}: flash launches "
-                                 f"{fa.launches}, finite {ok}")
+                                 f"{fa.launches}, finite {ok}, flash against "
+                                 f"plain {rel}")
     log(f"[mem] {cfg.name} serving: peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _whisper_trace(model, cast, *batches["a"])
@@ -1166,8 +1253,6 @@ def _whisper_trace(model, params, tokens, frames, steps: int = 8) -> None:
     summed device time of its kernels and copies (the busy share), their
     count and the largest five by name.  A trace without device events
     reports the share as not measured."""
-    from torch.profiler import ProfilerActivity, profile
-
     rows, n = tokens.shape
     cache = model.init_cache(rows, WHISPER_MAX_LEN, WHISPER_ENC_LEN)
 
@@ -1187,20 +1272,11 @@ def _whisper_trace(model, params, tokens, frames, steps: int = 8) -> None:
     torch.cuda.synchronize()
     for what, fn in (("prefill", prefill), (f"{steps} decode steps",
                                             lambda: decode(logits))):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        _, wall, events, by_name = _profiled(fn)
         if not events:
             log(f"[whisper-trace] {what}: no device events; busy share not "
                 f"measured")
             continue
-        by_name: dict[str, float] = {}
-        for e in events:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         log(f"[whisper-trace] run a {what} under torch.profiler: wall "
@@ -1232,8 +1308,6 @@ def phase_trace(model, params, kernels: tuple[str, ...],
     ``kernels``.  Also logs their counts and their share of all device time
     in the run.  A trace without device events is taken again; after
     ``tries`` the time is not measured (None)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.serve import ContinuousBatcher, Request
 
     prompts = _prompts(model.cfg.vocab_size)
@@ -1241,16 +1315,13 @@ def phase_trace(model, params, kernels: tuple[str, ...],
         reqs = [Request(rid=i, prompt=list(p), max_new=MAX_NEW)
                 for i, p in enumerate(prompts)]
         batcher = ContinuousBatcher(model, params, n_slots=4, max_len=1024)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            batcher.run(reqs)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        _, _, events, by_name = _profiled(lambda: batcher.run(reqs))
         if not events:
             continue
         hits = {n: [e for e in events if n in e.name] for n in kernels}
-        ms = sum(e.device_time for es in hits.values() for e in es) / 1e3
-        all_ms = sum(e.device_time for e in events) / 1e3
+        ms = sum(t for name, t in by_name.items()
+                 if any(n in name for n in kernels))
+        all_ms = sum(by_name.values())
         counts = " and ".join(f"{len(es)} {n}" for n, es in hits.items())
         log(f"[trace] {model.cfg.name} dense run under torch.profiler: "
             f"device time {ms} ms over {counts} launches "
@@ -1406,8 +1477,6 @@ def phase_train_full(card: str, arch: str) -> dict[str, int]:
     f32 masters plus m and v would write 30 GB a save), then one more step
     under ``torch.profiler``.  Returns the kernels' launches across the
     20 steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset
     from repro_torch.kernels import flash_attention as fa
@@ -1479,18 +1548,9 @@ def phase_train_full(card: str, arch: str) -> dict[str, int]:
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in TokenDataset(
         cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch(TRAIN_STEPS).items()}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in events) / 1e6
-    by_name: dict[str, float] = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    (params, state, m), prof_wall, events, by_name = _profiled(
+        lambda: step(params, state, batch), cpu=True)
+    busy = sum(by_name.values()) / 1e3
     if events:
         log(f"[train-trace] one more step under torch.profiler: wall "
             f"{prof_wall * 1e3:.2f} ms, {len(events)} device events, summed "

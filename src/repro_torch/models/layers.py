@@ -9,6 +9,7 @@ JAX does; a weight already held in that dtype (see
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -131,12 +132,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     return torch.cat(parts, dim=-1)
 
 
+@functools.lru_cache(maxsize=8)
 def sinusoidal_positions(seq_len: int, d_model: int,
                          dtype: torch.dtype = torch.float32,
                          device: torch.device | str = "cpu") -> torch.Tensor:
     """Standard transformer sinusoids (whisper encoder positions): the
     table is built in float64, as ``repro/models/layers.py:139-145`` builds
-    it with numpy, and cast to ``dtype`` once."""
+    it with numpy, and cast to ``dtype`` once.  Cached per arguments, so an
+    encoder builds and copies it to the device once, not at every call
+    (JAX's jit makes it a constant): callers must not write into it."""
     pos = np.arange(seq_len)[:, None]
     dim = np.arange(d_model // 2)[None, :]
     angle = pos / np.power(10000.0, 2 * dim / d_model)
