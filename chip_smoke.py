@@ -116,6 +116,23 @@ back to the CPU):
                under ``torch.profiler`` (busy share, top kernels, time by
                kernel kind) and one cut into forward, backward and
                optimizer (host enqueue against device time);
+9b. orchestrator -- ``repro_torch.core`` on the card: the Common Crawl
+               pipeline at the reference's ``CrawlConfig()`` (256 domains
+               x 12 pages, 64 seeds, 24 links, 128 tokens), 2 crawls x 2
+               shards, planned and materialized through ``RunCoordinator``
+               with injected failures, retries and failovers; edges and
+               graph_aggr must run their tensors on the card, one
+               partition's four outputs must hash as on the CPU, a second
+               materialize must be all cache hits, and at 33 tokens a page
+               two card runs and the CPU must give the same bytes (the
+               ordered segment sum).  Then examples/torch_train_lm.py's
+               stages: h2o-danube-1.8b at full width, 2 stages of 5 steps
+               (B 2 x S 1024), the second resuming from the first's
+               checkpoint (21.97 GB: its bytes, save and restore seconds),
+               one stage attempt injected-failed and retried, a falling
+               loss, a cached second run; the checkpoints are deleted.  An
+               asset error that is not an injected fault fails the phase;
+               neither path launches a kernel;
 10. the kernels JSON line, then the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
@@ -297,6 +314,19 @@ TRACE_KINDS = (("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
                ("elementwise", ("elementwise_kernel",)),
                ("copy", ("Memcpy", "Memset", "CatArrayBatchedCopy")))
 
+# the orchestrator phase (phase_orchestrator): the Common Crawl pipeline at
+# the reference's CrawlConfig() over 2 crawls x 2 shards, then danube's
+# training stages as assets at full width.  Fault injection is a function of
+# (sim seed, run id, asset, partition, attempt, platform): under run id
+# "cc-1" seed 3 fails and fails over edges and graph tasks; under
+# "train-stages" seed 2 fails stage1's first attempt, which is retried
+ORCH_CC_SEED, ORCH_TRAIN_SEED = 3, 2
+ORCH_ARCH, ORCH_STAGES, ORCH_STEPS = "h2o-danube-1.8b", 2, 5
+ORCH_CKPT = ROOT / "build" / "orchestrator_stages"
+# crawls whose segment sums the card must give in the CPU's bits on every
+# run: 33 tokens a page (weights in 33rds), and with a 16-token vocabulary
+# (overlap counts up to 33, where sum / 33 and sum * (1/33) part)
+ORCH_T33 = ({"tokens_per_page": 33}, {"tokens_per_page": 33, "vocab": 16})
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -1612,6 +1642,256 @@ def phase_train_parts(model, opt, params, state, batch) -> None:
         f"optimizer's bound (28 bytes a parameter) {opt_bound:.2f} ms")
 
 
+def _fatal(graph, errors: list):
+    """``graph`` with each asset function wrapped to keep what it raises in
+    ``errors``.  The simulated clients raise their injected failures before
+    the function runs, so whatever reaches the wrapper is real (a CUDA
+    error, a bug): the coordinator retries it as any failure, and
+    ``_materialize`` then fails the phase on it."""
+    import dataclasses
+    import functools
+
+    from repro_torch.core import AssetGraph
+
+    def wrap(fn):
+        @functools.wraps(fn)  # the store hashes the source of ``fn``
+        def run(*a, **k):
+            try:
+                return fn(*a, **k)
+            except BaseException as e:
+                errors.append(e)
+                raise
+        return run
+
+    return AssetGraph([dataclasses.replace(graph[n], fn=wrap(graph[n].fn))
+                       for n in graph.names()])
+
+
+def _materialize(coord, targets, run_id: str, errors: list, **kw):
+    try:
+        return coord.materialize(targets, run_id=run_id, **kw)
+    finally:
+        if errors:
+            raise RuntimeError(f"[orch] run {run_id}: an asset raised "
+                               f"{errors[0]!r}") from errors[0]
+
+
+def _orch_report(tag: str, report, reader) -> tuple[int, int]:
+    """Log the report, its retries, failovers, per-platform outcomes and
+    cost by asset; returns (retries, failovers)."""
+    for line in report.summary().splitlines():
+        log(f"[{tag}] {line}")
+    retries = sum(len(r.attempts) - 1 for r in report.records)
+    failovers = len(reader.events(kind="FAILOVER"))
+    log(f"[{tag}] retries {retries}, failovers {failovers}; per-platform "
+        f"outcomes {reader.outcome_counts()}")
+    log(f"[{tag}] cost by asset " + json.dumps(
+        {k: round(v, 2) for k, v in report.by_asset_cost().items()}))
+    return retries, failovers
+
+
+def _cc_hashes(cfg, device: str) -> dict:
+    """Data hashes of edges and graph_aggr of two partitions of ``cfg``."""
+    from repro_torch.core import MaterializationStore
+    from repro_torch.data import commoncrawl as cc
+
+    out = {}
+    for crawl, shard in (("2023-10", "shard-0"), ("2023-11", "shard-1")):
+        nodes = cc.nodes_asset(crawl, shard, cfg)
+        edges = cc.edges_asset(crawl, shard, nodes, cfg, device=device)
+        aggr = cc.graph_aggr_asset(cc.graph_asset(nodes, edges), cfg,
+                                   device=device)
+        for name, value in (("edges", edges), ("graph_aggr", aggr)):
+            out[f"{name}[{crawl}/{shard}]"] = \
+                MaterializationStore.data_fingerprint(value)[1]
+    return out
+
+
+def phase_orchestrator_cc() -> None:
+    """The Common Crawl pipeline through ``RunCoordinator`` on the card, as
+    examples/torch_commoncrawl_graph.py runs it but at the reference's
+    CrawlConfig(); its bytes against the CPU's; a cached second run; the
+    segment sum's bits at 33 tokens a page, card against card and CPU."""
+    from benchmarks.torch_cc_pipeline import build_graph
+    from examples.torch_commoncrawl_graph import PARTS
+    from repro_torch.core import (CostModel, DynamicClientFactory,
+                                  MaterializationStore, MessageReader,
+                                  Objective, RunCoordinator, default_catalog)
+    from repro_torch.data import commoncrawl as cc
+
+    cfg = cc.CrawlConfig()
+    errors: list = []
+    reader = MessageReader()
+    coord = RunCoordinator(
+        _fatal(build_graph(cfg, partitions=PARTS, device="cuda"), errors),
+        DynamicClientFactory(default_catalog(), CostModel(),
+                             Objective.balanced(), sim_seed=ORCH_CC_SEED),
+        reader=reader)
+    cc.device_calls.clear()
+    t0 = time.perf_counter()
+    plan = coord.plan(["graph_aggr"])
+    report = _materialize(coord, ["graph_aggr"], "cc-1", errors, plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = dict(cc.device_calls)
+    log(f"[orch-cc] CrawlConfig() ({cfg.n_domains} domains x "
+        f"{cfg.n_pages_per_domain} pages, {cfg.n_seed} seeds, "
+        f"{cfg.max_links} links, {cfg.tokens_per_page} tokens) over "
+        f"{len(PARTS.keys())} partitions: plan + materialize {wall:.3f} s "
+        f"(host clock up to a sync)")
+    retries, failovers = _orch_report("orch-cc", report, reader)
+    log(f"[orch-cc] tensor work by (asset, device): {calls}")
+    if not report.ok or not retries or not failovers:
+        raise AssertionError("[orch-cc] want a successful run with retries "
+                             "and failovers")
+    if {d for _, d in calls} != {"cuda"} or min(calls.values()) < 4 or \
+            len(calls) != 2:
+        raise AssertionError(f"[orch-cc] edges and graph_aggr must run on "
+                             f"the card for every partition: {calls}")
+
+    part = "2023-10/shard-0"
+    nodes = cc.nodes_asset("2023-10", "shard-0", cfg)
+    edges = cc.edges_asset("2023-10", "shard-0", nodes, cfg, device="cpu")
+    graph = cc.graph_asset(nodes, edges)
+    cpu = {"nodes": nodes, "edges": edges, "graph": graph,
+           "graph_aggr": cc.graph_aggr_asset(graph, cfg, device="cpu")}
+    for name, value in cpu.items():
+        card_hash = coord.store.data_hash(name, part)
+        cpu_hash = MaterializationStore.data_fingerprint(value)[1]
+        log(f"[orch-cc] {name}[{part}] data hash: card {card_hash}, cpu "
+            f"{cpu_hash}")
+        if card_hash != cpu_hash:
+            raise AssertionError(f"[orch-cc] {name}[{part}]: the card's "
+                                 "bytes differ from the CPU's")
+    log(f"[orch-cc] graph_aggr[{part}]: {len(cpu['graph_aggr']['weight'])} "
+        f"inter-domain edges")
+
+    again = _materialize(coord, ["graph_aggr"], "cc-2", errors)
+    cached = sum(r.cached for r in again.records)
+    log(f"[orch-cc] second materialize: {cached} of {len(again.records)} "
+        f"tasks cached, cost ${again.total_cost:.2f}")
+    if cached != len(again.records) or again.total_cost != 0:
+        raise AssertionError("[orch-cc] the second run was not all cache hits")
+
+    for kw in ORCH_T33:
+        cfg33 = cc.CrawlConfig(**kw)
+        runs = [_cc_hashes(cfg33, "cuda"), _cc_hashes(cfg33, "cuda"),
+                _cc_hashes(cfg33, "cpu")]
+        log(f"[orch-cc] CrawlConfig({kw}) data hashes, card run 1 / card "
+            f"run 2 / cpu: " + json.dumps({k: [r[k] for r in runs]
+                                          for k in runs[0]}))
+        if not runs[0] == runs[1] == runs[2]:
+            raise AssertionError(f"[orch-cc] CrawlConfig({kw}): the card's "
+                                 "bytes differ between runs or from the CPU's")
+    rng = np.random.RandomState(0)
+    data = torch.from_numpy(rng.standard_normal(200_000).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(0, 1000, size=200_000))
+    cpu_sum = cc.segment_sum(data, ids, 1024)
+    card = [cc.segment_sum(data.cuda(), ids.cuda(), 1024).cpu()
+            for _ in range(2)]
+    atomics = torch.zeros(1024, device="cuda").index_add_(
+        0, ids.cuda(), data.cuda()).cpu()
+    log(f"[orch-cc] segment_sum of 200000 normal f32 values into 1000 of "
+        f"1024 bins: card runs equal {torch.equal(card[0], card[1])}, card "
+        f"equal to the CPU {torch.equal(card[0], cpu_sum)}; index_add_ "
+        f"(float atomics, not used) differs from it in "
+        f"{int((atomics != cpu_sum).sum())} bins")
+    if not (torch.equal(card[0], card[1]) and torch.equal(card[0], cpu_sum)):
+        raise AssertionError("[orch-cc] segment_sum's bits differ")
+
+
+def phase_orchestrator_train(card: str) -> None:
+    """examples/torch_train_lm.py's stage graph: ORCH_ARCH at full width,
+    ORCH_STAGES stages of ORCH_STEPS steps through ``RunCoordinator``, each
+    stage resuming from the checkpoint the one before wrote; a retried
+    stage attempt, the checkpoint's bytes and its save and restore
+    seconds, a falling loss, a cached second run.  The checkpoint directory
+    is deleted at the end."""
+    import shutil
+
+    from examples.torch_train_lm import FULL, stage_graph
+    from repro_torch.configs import get_config
+    from repro_torch.core import (CostModel, DynamicClientFactory,
+                                  MessageReader, Objective, RunCoordinator,
+                                  default_catalog)
+
+    cfg = get_config(ORCH_ARCH)
+    want = cfg.param_count() * 12  # f32 params, m and v
+    shutil.rmtree(ORCH_CKPT, ignore_errors=True)
+    ORCH_CKPT.mkdir(parents=True)
+    free = shutil.disk_usage(ORCH_CKPT).free
+    log(f"[orch-train] {ORCH_CKPT}: {free / 1e9:.1f} GB free; a checkpoint "
+        f"of {cfg.name} ({cfg.param_count() / 1e9:.3f}B params, f32 params, "
+        f"m and v) {want / 1e9:.3f} GB, {ORCH_STAGES} kept ({card})")
+    if free < 1.1 * ORCH_STAGES * want:
+        raise RuntimeError(f"[orch-train] {free / 1e9:.1f} GB free, "
+                           f"{ORCH_STAGES} checkpoints need "
+                           f"{ORCH_STAGES * want / 1e9:.1f} GB")
+    last = f"stage{ORCH_STAGES - 1}"
+    errors: list = []
+    reader = MessageReader()
+    coord = RunCoordinator(
+        _fatal(stage_graph(ORCH_ARCH, ORCH_STAGES, ORCH_STEPS, str(ORCH_CKPT),
+                           full=True, device="cuda"), errors),
+        DynamicClientFactory(default_catalog(), CostModel(),
+                             Objective.balanced(), sim_seed=ORCH_TRAIN_SEED),
+        reader=reader)
+    try:
+        t0 = time.perf_counter()
+        report = _materialize(coord, [last], "train-stages", errors)
+        wall = time.perf_counter() - t0
+        retries, _ = _orch_report("orch-train", report, reader)
+        losses = []
+        for i in range(ORCH_STAGES):
+            name = f"stage{i}"
+            out = coord.store.get(name, "__all__")
+            ck = reader.events(kind="CHECKPOINT", asset=name)[-1].payload
+            losses += out["losses"]
+            log(f"[orch-train] {name}: resumed from step "
+                f"{ck['resumed_step']} (restore {ck['restore_s']:.3f} s), "
+                f"trained to step {out['steps']}, losses {out['losses']}; "
+                f"checkpoint {ck['bytes']} bytes ({ck['bytes'] / 1e9:.3f} GB) "
+                f"saved in {ck['save_s']:.3f} s "
+                f"({ck['bytes'] / 1e9 / ck['save_s']:.2f} GB/s)")
+            if ck["resumed_step"] != i * ORCH_STEPS or not ck["bytes"]:
+                raise AssertionError(f"[orch-train] {name} did not resume "
+                                     f"from stage{i - 1}'s checkpoint")
+        log(f"[orch-train] {ORCH_STAGES} stages of {ORCH_STEPS} steps (B "
+            f"{FULL['global_batch']} x S {FULL['seq_len']}): {wall:.3f} s")
+        if not retries:
+            raise AssertionError("[orch-train] no stage attempt was retried")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"[orch-train] loss {losses}")
+        n_ckpt = len(reader.events(kind="CHECKPOINT"))
+        again = _materialize(coord, [last], "train-stages-2", errors)
+        cached = sum(r.cached for r in again.records)
+        log(f"[orch-train] second materialize of {last}: {cached} of "
+            f"{len(again.records)} tasks cached")
+        if cached != len(again.records) or \
+                len(reader.events(kind="CHECKPOINT")) != n_ckpt:
+            raise AssertionError("[orch-train] the second run trained again")
+    finally:
+        shutil.rmtree(ORCH_CKPT, ignore_errors=True)
+
+
+def phase_orchestrator(card: str) -> None:
+    """Both orchestrator phases with the kernels' launch counts read around
+    them: neither the Common Crawl assets nor training launch a kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+
+    fa.launches = ls.launches = 0
+    t0 = time.perf_counter()
+    phase_orchestrator_cc()
+    phase_orchestrator_train(card)
+    torch.cuda.synchronize()
+    launches = {"flash": fa.launches, "wkv": ls.launches}
+    log(f"[orch] phase {time.perf_counter() - t0:.3f} s; launches {launches}")
+    if launches != {"flash": 0, "wkv": 0}:
+        raise AssertionError(f"[orch] the orchestrator's path launched "
+                             f"{launches}")
+
+
 def main() -> None:
     card = phase_env()
     ptxas = phase_build()
@@ -1683,6 +1963,7 @@ def main() -> None:
         train_launches = phase_train_full(card, arch)
         flash_launches[f"train {arch}"] = train_launches["flash"]
         wkv_launches[f"train {arch}"] = train_launches["wkv"]
+    phase_orchestrator(card)
 
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,

@@ -120,6 +120,11 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def nbytes(self, step: int) -> int:
+        """Bytes on disk of committed step ``step``."""
+        d = self._step_dir(step)
+        return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
     def restore(self, step: int, like: Any,
                 device: torch.device | str = "cuda") -> Any:
         """The tree of ``like`` (nested dicts whose leaves have a ``shape``)

@@ -70,7 +70,11 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
     """Train ``arch`` for ``steps`` steps from seed-``seed`` weights (or from
     the latest checkpoint in ``ckpt_dir``).  Metrics are read on the host
     only at log steps (every ``log_every`` and the last): ``history`` holds
-    those, each with ``step`` and ``wall_s`` since the loop began."""
+    those, each with ``step`` and ``wall_s`` since the loop began.
+    ``checkpoint`` says what the run restored and wrote: the step it
+    resumed from (0 for none), the seconds of the restore and of the last
+    save (from the call until the write is on disk), and the bytes of that
+    save (0 without ``ckpt_dir``)."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     if cfg.enc_dec:  # the reference's train() would fail on batch["frames"]
         raise ValueError(f"{arch}: train() feeds token batches only, and an "
@@ -85,16 +89,20 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
     params = model.init(seed)
     opt_state = opt.init(params)
     step = 0
+    ckpt = {"resumed_step": 0, "restore_s": 0.0, "save_s": 0.0, "bytes": 0}
 
     mgr = None
     if ckpt_dir:
         mgr = CheckpointManager(ckpt_dir, keep=3)
         if resume:
+            t = time.perf_counter()
             got = mgr.restore_latest({"params": params, "opt_state": opt_state},
                                      device=device)
             if got is not None:
                 step, tree = got
                 params, opt_state = tree["params"], tree["opt_state"]
+                ckpt["resumed_step"] = step
+                ckpt["restore_s"] = time.perf_counter() - t
                 print(f"[train] resumed from step {step}")
 
     train_step = make_train_step(model, opt)
@@ -114,8 +122,13 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
                   f"aux_loss={m['aux_loss']:.4f} gnorm={m['grad_norm']:.3f} "
                   f"lr={m['lr']:.2e}")
         if mgr and (step % save_every == 0 or step == steps):
+            t = time.perf_counter()
             mgr.save(step, {"params": params, "opt_state": opt_state},
                      metadata={"arch": arch, "step": step})
+            if step == steps:  # the last save: wait for the write
+                mgr.wait()
+                ckpt["save_s"] = time.perf_counter() - t
+                ckpt["bytes"] = mgr.nbytes(step)
         if preempt_at is not None and step >= preempt_at:
             if mgr:
                 mgr.wait()
@@ -127,7 +140,7 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
     losses = [h["loss"] for h in history]
     return {"history": history, "final_loss": losses[-1] if losses else None,
             "first_loss": losses[0] if losses else None, "steps": step,
-            "params": params}
+            "checkpoint": ckpt, "params": params}
 
 
 def main() -> None:

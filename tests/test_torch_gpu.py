@@ -6,8 +6,10 @@ sliding-window, MLA and MoE smoke models' prefill and decode on the card
 against the CPU; the encoder-decoder path's non-causal shapes (whisper's
 encoder and cross-attention, 1500 keys: a ragged last key tile) and
 qwen2-vl's GQA 64/8 at D 128; whisper's smoke prefill then decode on the
-card against a full prefill and against the CPU; and train steps on the
-card against the same steps on the CPU, which launch neither kernel.
+card against a full prefill and against the CPU; train steps on the
+card against the same steps on the CPU, which launch neither kernel; and
+the Common Crawl assets on the card, byte for byte against the CPU and
+across runs, alone and materialized through the orchestrator.
 
 Run on a machine with an NVIDIA card (no JAX needed there):
 
@@ -466,3 +468,77 @@ def test_train_step_on_card_launches_no_kernel(arch):
     torch.cuda.synchronize()
     assert (fa.launches, ls.launches) == before
     assert all(math.isfinite(x) for x in losses)
+
+
+# the Common Crawl configs whose bytes the card must reproduce: the
+# reference's default (T 128), 33 tokens a page (weights in 33rds), and 33
+# with a 16-token vocabulary (overlap counts where sum / 33 and
+# sum * (1/33) part in the last bit)
+CC_GPU_CASES = [{}, {"tokens_per_page": 33},
+                {"tokens_per_page": 33, "vocab": 16}]
+
+
+def _cc_outputs(cfg, device):
+    from repro_torch.data import commoncrawl as cc
+
+    out = {}
+    for crawl, shard in (("2023-10", "shard-0"), ("2023-11", "shard-1")):
+        nodes = cc.nodes_asset(crawl, shard, cfg)
+        edges = cc.edges_asset(crawl, shard, nodes, cfg, device=device)
+        aggr = cc.graph_aggr_asset(cc.graph_asset(nodes, edges), cfg,
+                                   device=device)
+        out[crawl, shard] = (edges, aggr)
+    return out
+
+
+def _cc_bytes(outputs):
+    from repro_torch.core import MaterializationStore
+
+    return {k: [MaterializationStore.data_fingerprint(v)[1] for v in vals]
+            for k, vals in outputs.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", CC_GPU_CASES, ids=lambda kw: str(kw or "T128"))
+def test_commoncrawl_on_card_matches_cpu_bytes(kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the assets run their tensors there")
+    from repro_torch.data import commoncrawl as cc
+
+    cfg = cc.CrawlConfig(**kw)
+    cc.device_calls.clear()
+    first = _cc_bytes(_cc_outputs(cfg, "cuda"))
+    assert cc.device_calls == {("edges", "cuda"): 2, ("graph_aggr", "cuda"): 2}
+    assert _cc_bytes(_cc_outputs(cfg, "cuda")) == first
+    assert _cc_bytes(_cc_outputs(cfg, "cpu")) == first
+
+
+@pytest.mark.gpu
+def test_segment_sum_on_card_is_ordered():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.data import commoncrawl as cc
+
+    g = torch.Generator().manual_seed(0)
+    data = torch.randn(200_000, generator=g)
+    ids = torch.randint(0, 1000, (200_000,), generator=g)
+    cpu = cc.segment_sum(data, ids, 1024)
+    for _ in range(2):
+        assert torch.equal(cc.segment_sum(data.cuda(), ids.cuda(), 1024).cpu(),
+                           cpu)
+
+
+@pytest.mark.gpu
+def test_commoncrawl_materializes_through_the_coordinator_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from benchmarks.torch_cc_pipeline import SMALL, run_policy
+    from repro_torch.data import commoncrawl as cc
+
+    cc.device_calls.clear()
+    report, reader = run_policy("orchestrated", seed=4, partitions=SMALL,
+                                device="cuda")
+    assert report.ok and reader.events(kind="MATERIALIZE")
+    assert {d for _, d in cc.device_calls} == {"cuda"}
+    costs = report.by_asset_cost()
+    assert costs["edges"] > 5 * (costs["nodes"] + costs["graph_aggr"])

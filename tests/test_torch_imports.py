@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package (``repro``)."""
+"""The port stands alone: nothing under ``src/repro_torch/``, in the port's
+examples and benchmarks (``examples/torch_*.py``, ``benchmarks/torch_*.py``)
+or in ``chip_smoke.py`` imports JAX or the JAX package (``repro``)."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,10 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py"))
+         + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+         + [ROOT / "chip_smoke.py"])
 
 
 def _banned(module: str) -> bool:
@@ -47,6 +51,20 @@ def test_serving_entry_point_loads_without_jax():
 
 def test_train_entry_point_loads_without_jax():
     code = ("import sys, repro_torch.launch.train; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=ROOT, timeout=120)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core",
+                                    "repro_torch.launch.router",
+                                    "repro_torch.data.commoncrawl",
+                                    "benchmarks.torch_cc_pipeline"])
+def test_orchestrator_loads_without_jax(module):
+    code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
