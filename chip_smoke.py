@@ -133,7 +133,25 @@ back to the CPU):
                loss, a cached second run; the checkpoints are deleted.  An
                asset error that is not an injected fault fails the phase;
                neither path launches a kernel;
-10. the kernels JSON line, then the card line, then the result line.
+10. distributed -- training under a mesh: a (data 1, model 1) DeviceMesh
+               over an NCCL group of one rank (no fallback to gloo or the
+               CPU).  granite-moe-1b-a400m@4 (4 of 24 layers, full width)
+               in f32 at capacity_factor E / top_k, B 4 x S 2048 (8192
+               tokens, above moe._SMALL_T): the capacity path (asserted)
+               on the mesh against the dense path without it, the loss to
+               rtol 2e-4 and every gradient leaf to 1e-3 of its max |g|;
+               then granite at full width, bf16, remat full, 10 steps of
+               ``train(mesh_info=...)`` at capacity_factor 1.25 and 10
+               without a mesh (the dense path): finite, falling loss, the
+               step wall, tokens/s, peak memory, the dropped share of each
+               layer's (token, slot) assignments at steps 1 and 10, the
+               experts' executed FLOPs against their active ones, and one
+               profiled step of each (busy share, top kernels); one layer's
+               expert einsums, forward and backward, timed alone on each
+               path; ``compressed_psum_tree`` twice over a step's gradients
+               on the NCCL group, bit-equal to the int8 round trip;
+               neither kernel launches;
+11. the kernels JSON line, then the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository.
@@ -327,6 +345,20 @@ ORCH_CKPT = ROOT / "build" / "orchestrator_stages"
 # run: 33 tokens a page (weights in 33rds), and with a 16-token vocabulary
 # (overlap counts up to 33, where sum / 33 and sum * (1/33) part)
 ORCH_T33 = ({"tokens_per_page": 33}, {"tokens_per_page": 33, "vocab": 16})
+
+# the distributed phase (phase_distributed): granite-moe-1b-a400m on a
+# (data 1, model 1) mesh of the card, NCCL at world size 1.  B x S = 8192
+# tokens is above moe._SMALL_T (4096), so apply_moe takes the capacity
+# path (_moe_shard_map).  Parity: the first DIST_PARITY_LAYERS layers at
+# full width in f32 at capacity_factor E / top_k (cap = T: nothing drops)
+# against the no-mesh dense path, the loss to the reference's own sharded-
+# vs-unsharded rtol (tests/test_multidevice.py:68) and every gradient leaf
+# to DIST_GRAD_TOL of its max |g|; then DIST_STEPS full-width steps on the
+# mesh at the config's capacity_factor 1.25, and as many without a mesh
+# (the dense path), bf16, remat full
+DIST_ARCH, DIST_PARITY_LAYERS = "granite-moe-1b-a400m", 4
+DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 2048, 10
+DIST_PARITY_RTOL, DIST_GRAD_TOL = 2e-4, 1e-3
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -1892,6 +1924,313 @@ def phase_orchestrator(card: str) -> None:
                              f"{launches}")
 
 
+def _dist_parity(info) -> None:
+    """granite@DIST_PARITY_LAYERS in f32 at capacity_factor E / top_k: the
+    loss and every gradient of the capacity path on the mesh against the
+    dense path without one, from the same weights and batch."""
+    from repro_torch.data import TokenDataset
+    from repro_torch.distributed.sharding import distribute_tree, use_mesh_info
+    from repro_torch.models import LanguageModel, moe
+    from repro_torch.utils import tree_flatten, tree_leaves, tree_map
+
+    cfg = _config(f"{DIST_ARCH}@{DIST_PARITY_LAYERS}")
+    cfg = cfg.scaled(compute_dtype="float32",
+                     capacity_factor=cfg.n_experts / cfg.top_k)
+    model = LanguageModel(cfg, device="cuda")
+    params = model.init(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenDataset(
+        cfg.vocab_size, DIST_SEQ, DIST_BATCH).batch(0).items()}
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    moe.PATH_CALLS.update(dense=0, shard_map=0)
+    ref, _ = model.train_loss(params, batch)
+    ref_grads = torch.autograd.grad(ref, leaves)
+    ref = float(ref.detach())
+    dense_calls = dict(moe.PATH_CALLS)
+    with use_mesh_info(info):
+        moe.PATH_CALLS.update(dense=0, shard_map=0)
+        dp = distribute_tree(tree_map(lambda t: t.detach(), params),
+                             model.param_axes, info)
+        del params, leaves
+        dl = [p.requires_grad_(True) for p in tree_leaves(dp)]
+        db = {k: info.distribute(v, ("batch", "seq_act"))
+              for k, v in batch.items()}
+        tot, _ = model.train_loss(dp, db)
+        grads = torch.autograd.grad(tot, dl)
+        calls = dict(moe.PATH_CALLS)
+        if dl[0].device.type != "cuda":
+            raise AssertionError(f"[dist] params on {dl[0].device}")
+        loss = float(tot.detach().full_tensor())
+        worst, where = 0.0, ""
+        for (key, _), a, b in zip(tree_flatten(dp), grads, ref_grads):
+            err = float((a.full_tensor() - b).abs().max()
+                        / b.abs().max().clamp(min=1e-30))
+            if err >= worst:
+                worst, where = err, key
+    n_moe = _moe_layers(cfg) * (1 if cfg.remat == "none" else 2)  # reruns
+    rel = abs(loss - ref) / abs(ref)
+    log(f"[dist] {cfg.name} ({_depth(cfg)}), f32, B {DIST_BATCH} x S "
+        f"{DIST_SEQ} = {DIST_BATCH * DIST_SEQ} tokens (_SMALL_T "
+        f"{moe._SMALL_T}), capacity_factor {cfg.capacity_factor} (cap "
+        f"{moe._capacity(DIST_BATCH * DIST_SEQ, cfg)}): paths without the "
+        f"mesh {dense_calls}, on it {calls}; loss {loss!r} on the mesh vs "
+        f"{ref!r} dense, rel {rel:.3e} (rtol {DIST_PARITY_RTOL}); worst "
+        f"gradient leaf {where} at {worst:.3e} of its max |g| (tol "
+        f"{DIST_GRAD_TOL}), over {len(grads)} leaves")
+    if (calls != {"dense": 0, "shard_map": n_moe}
+            or dense_calls != {"dense": n_moe, "shard_map": 0}):
+        raise AssertionError(f"[dist] paths {dense_calls} / {calls}")
+    if not (rel <= DIST_PARITY_RTOL and worst <= DIST_GRAD_TOL):
+        raise AssertionError("[dist] the capacity path parts from dense")
+    del dp, dl, grads, ref_grads, tot
+    torch.cuda.empty_cache()
+
+
+def _expert_flops(cfg, tokens: int, path: str) -> float:
+    """FLOPs of one layer's expert einsums in one forward: 2 d ff a row for
+    each of the three products, over T x top_k rows (active), E x cap slots
+    (capacity path) or T x E (dense path)."""
+    from repro_torch.models import moe
+
+    rows = {"active": tokens * cfg.top_k,
+            "capacity": cfg.n_experts * moe._capacity(tokens, cfg),
+            "dense": tokens * cfg.n_experts}[path]
+    return 3 * 2 * rows * cfg.d_model * cfg.d_ff_expert
+
+
+def _dist_train(card: str, info) -> dict:
+    """DIST_STEPS full-width steps of ``train`` at B x S = DIST_BATCH x
+    DIST_SEQ, on the mesh (``info``: the capacity path) or without one
+    (the dense path), then one more step under ``torch.profiler``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.distributed.sharding import use_mesh_info
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models import LanguageModel, moe
+    from repro_torch.optim import AdamW, OptConfig
+
+    cfg = get_config(DIST_ARCH)
+    tag = "mesh (1, 1), capacity path" if info else "no mesh, dense path"
+    torch.cuda.reset_peak_memory_stats()
+    moe.PATH_CALLS.update(dense=0, shard_map=0)
+    moe.DROPS = [] if info else None
+    out = train(arch=DIST_ARCH, smoke=False, steps=DIST_STEPS,
+                global_batch=DIST_BATCH, seq_len=DIST_SEQ, peak_lr=TRAIN_LR,
+                ckpt_dir=None, log_every=1, mesh_info=info, device="cuda")
+    torch.cuda.synchronize()
+    drops, moe.DROPS = moe.DROPS, None
+    calls = dict(moe.PATH_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    walls = [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
+    wall = float(np.median(walls))  # steps 2 .. DIST_STEPS
+    tokens = DIST_BATCH * DIST_SEQ
+    flops = train_flops(cfg, DIST_BATCH, DIST_SEQ)
+    n_moe = _moe_layers(cfg)
+    log(f"[dist] {cfg.name} full width, {tag}, bf16, remat {cfg.remat}, B "
+        f"{DIST_BATCH} x S {DIST_SEQ}, {DIST_STEPS} steps, peak lr "
+        f"{TRAIN_LR}: losses {losses}; router losses "
+        f"{[h['aux_loss'] for h in hist]}; MoE calls {calls}")
+    log(f"[dist] {tag}: step wall (median of steps 2-{DIST_STEPS}) "
+        f"{wall * 1e3:.2f} ms; tokens/s {tokens / wall:.1f}; model-FLOP "
+        f"share {flops / wall / PEAK_FLOPS[torch.bfloat16]:.4f}; peak "
+        f"allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) ({card})")
+    path = "capacity" if info else "dense"
+    active = _expert_flops(cfg, tokens, "active")
+    log(f"[dist] {tag}: the experts execute "
+        f"{_expert_flops(cfg, tokens, path) / active:.3f}x their active "
+        f"FLOPs ({_expert_flops(cfg, tokens, path) * n_moe / 1e12:.3f} T "
+        f"against {active * n_moe / 1e12:.3f} T a forward over {n_moe} "
+        f"layers)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[dist] {tag}: losses {losses}")
+    want = {"dense": 0, "shard_map": 2 * n_moe * DIST_STEPS} if info else \
+        {"dense": 2 * n_moe * DIST_STEPS, "shard_map": 0}  # remat reruns each
+    if calls != want:
+        raise AssertionError(f"[dist] {tag}: MoE calls {calls}, not {want}")
+    if info:
+        per_step = len(drops) // DIST_STEPS
+        if per_step != 2 * n_moe or len(drops) % DIST_STEPS:
+            raise AssertionError(f"[dist] {len(drops)} drop records")
+        slots = drops[0][1]
+        for step in (1, DIST_STEPS):  # the forward's layers, in order
+            share = [float(d) / slots for d, _ in
+                     drops[(step - 1) * per_step:(step - 1) * per_step + n_moe]]
+            log(f"[dist] dropped share of the {slots} (token, slot) "
+                f"assignments a layer at step {step}: "
+                f"{[round(x, 5) for x in share]} (mean "
+                f"{float(np.mean(share)):.5f})")
+
+    model = LanguageModel(cfg, device="cuda")
+    params = out.pop("params")
+    del out
+    opt = AdamW(OptConfig(peak_lr=TRAIN_LR))
+    with use_mesh_info(info):
+        state, step = opt.init(params), make_train_step(model, opt)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in TokenDataset(
+            cfg.vocab_size, DIST_SEQ, DIST_BATCH).batch(DIST_STEPS).items()}
+        if info:
+            batch = {k: info.distribute(v, ("batch", "seq_act"))
+                     for k, v in batch.items()}
+        torch.cuda.synchronize()
+        (params, state, _), prof_wall, events, by_name = _profiled(
+            lambda: step(params, state, batch))
+    busy = sum(by_name.values()) / 1e3
+    log(f"[dist-trace] {tag}: one more step under torch.profiler: wall "
+        f"{prof_wall * 1e3:.2f} ms, {len(events)} device events, device time "
+        f"{busy * 1e3:.2f} ms: busy {busy / prof_wall:.4f} of that wall"
+        if events else f"[dist-trace] {tag}: no device time in the trace: "
+        "busy share not measured")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+        log(f"[dist-trace] {ms:.3f} ms {name[:110]}")
+    del params, state, batch, model
+    torch.cuda.empty_cache()
+    return {"wall": wall, "peak": peak, "busy": busy / prof_wall
+            if events else None}
+
+
+def _dist_experts(card: str) -> None:
+    """One layer's expert einsums, forward and backward, timed alone at the
+    full-width step's shapes (bf16): the capacity path's (E, cap, d)
+    buffer against the dense path's (T, d) tokens over every expert."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import _act
+
+    cfg = get_config(DIST_ARCH)
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    T = DIST_BATCH * DIST_SEQ
+    cap = moe._capacity(T, cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    w = [(torch.randn(E, *s, generator=g, **bf) * 0.03).requires_grad_(True)
+         for s in ((d, ff), (d, ff), (ff, d))]
+    cases = {"capacity": ("ecd,edf->ecf", "ecf,efd->ecd", (E, cap, d)),
+             "dense": ("td,edf->tef", "tef,efd->ted", (T, d))}
+    ms = {}
+    for path, (up, down, shape) in cases.items():
+        x = torch.randn(*shape, generator=g, **bf).requires_grad_(True)
+
+        def fwd_bwd():
+            h = torch.einsum(up, x, w[0])
+            u = torch.einsum(up, x, w[1])
+            y = torch.einsum(down, _act(cfg, h) * u, w[2])
+            torch.autograd.grad(y.float().square().sum(), [x] + w)
+
+        ms[path] = device_ms(fwd_bwd)
+        flops = 3 * _expert_flops(cfg, T, path)  # forward + 2x backward
+        log(f"[dist-experts] {path}: one layer's expert einsums at {shape}, "
+            f"forward + backward, {ms[path]} device ms; {flops / 1e12:.3f} T "
+            f"FLOPs, bound {flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.3f} ms "
+            f"({card})")
+    if None not in ms.values():
+        n = _moe_layers(cfg)
+        log(f"[dist-experts] capacity / dense {ms['capacity'] / ms['dense']:.3f}"
+            f"; a step's experts (x {n} layers, + the remat forward) about "
+            f"{4 / 3 * n * ms['capacity']:.1f} vs {4 / 3 * n * ms['dense']:.1f}"
+            f" device ms")
+
+
+def _dist_collectives(info) -> None:
+    """``compressed_psum_tree`` over one step's gradient tree on the mesh's
+    group (world size 1), twice: the mean must equal the int8 round trip of
+    g + e bit for bit, and the new error g + e - q scale."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.distributed.collectives import (compressed_psum_tree,
+                                                     dequantize_int8,
+                                                     init_error_state,
+                                                     quantize_int8)
+    from repro_torch.distributed.sharding import distribute_tree, use_mesh_info
+    from repro_torch.models import LanguageModel
+    from repro_torch.utils import tree_leaves, tree_unflatten
+
+    cfg = get_config(DIST_ARCH)
+    model = LanguageModel(cfg, device="cuda")
+    with use_mesh_info(info):
+        params = distribute_tree(model.init(0), model.param_axes, info)
+        batch = {k: info.distribute(torch.from_numpy(v).cuda(),
+                                    ("batch", "seq_act"))
+                 for k, v in TokenDataset(cfg.vocab_size, DIST_SEQ,
+                                          DIST_BATCH).batch(0).items()}
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        total, _ = model.train_loss(params, batch)
+        grads = [g.to_local() for g in torch.autograd.grad(total, leaves)]
+    del params, leaves, total
+    grads = tree_unflatten(model.param_shapes(), grads)
+    group = info.mesh.get_group("data")
+    errors = init_error_state(grads)
+    n = sum(g.numel() for g in tree_leaves(grads))
+    for rnd in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means, new_errors = compressed_psum_tree(grads, group, errors)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        bad = 0
+        for g, e, m, ne in zip(tree_leaves(grads), tree_leaves(errors),
+                               tree_leaves(means), tree_leaves(new_errors)):
+            x = g.float() + e
+            q, scale = quantize_int8(x)
+            bad += int(not torch.equal(m, dequantize_int8(q, scale).to(m.dtype)))
+            bad += int(not torch.equal(ne, x - q.float() * scale))
+        log(f"[dist-compress] round {rnd}: compressed_psum_tree over "
+            f"{len(tree_leaves(grads))} gradient leaves ({n} values) on "
+            f"the {dist.get_backend(group)} group of world size "
+            f"{group.size()}: {ms:.2f} ms wall; leaves whose mean or error "
+            f"parts from the int8 round trip: {bad}")
+        if bad:
+            raise AssertionError("[dist-compress] not the int8 round trip")
+        errors = new_errors
+    del grads, errors, means, new_errors
+    torch.cuda.empty_cache()
+
+
+def phase_distributed(card: str) -> None:
+    """Training under a mesh: a (data 1, model 1) DeviceMesh over an NCCL
+    group of one rank (a FileStore rendezvous in a temporary directory; no
+    fallback to gloo or the CPU), then ``_dist_parity``, ``_dist_train`` on
+    the mesh and without one, ``_dist_experts`` and ``_dist_collectives``.
+    Neither kernel runs: the mesh path trains through ``attention_core``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.launch.mesh import init_process_group, small_mesh_info
+
+    fa.launches = ls.launches = 0
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        init_process_group("nccl", f"file://{d}/rendezvous", rank=0,
+                           world_size=1)
+        try:
+            info = small_mesh_info((1, 1), device_type="cuda")
+            log(f"[dist] process group {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}, mesh {info.axis_sizes} on "
+                f"{info.mesh.device_type}")
+            _dist_parity(info)
+            on = _dist_train(card, info)
+            off = _dist_train(card, None)
+            log(f"[dist] step wall on the mesh / without {on['wall'] * 1e3:.2f}"
+                f" / {off['wall'] * 1e3:.2f} ms; peak {on['peak'] / 2**30:.2f}"
+                f" / {off['peak'] / 2**30:.2f} GiB; busy {on['busy']} / "
+                f"{off['busy']} ({card})")
+            _dist_experts(card)
+            _dist_collectives(info)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    launches = {"flash": fa.launches, "wkv": ls.launches}
+    log(f"[dist] phase {time.perf_counter() - t0:.3f} s; launches {launches}")
+    if launches != {"flash": 0, "wkv": 0}:
+        raise AssertionError(f"[dist] the mesh path launched {launches}")
+
+
 def main() -> None:
     card = phase_env()
     ptxas = phase_build()
@@ -1964,6 +2303,7 @@ def main() -> None:
         flash_launches[f"train {arch}"] = train_launches["flash"]
         wkv_launches[f"train {arch}"] = train_launches["wkv"]
     phase_orchestrator(card)
+    phase_distributed(card)
 
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,

@@ -10,8 +10,12 @@ Layout:  <dir>/step_00000100/
 
 A step is written under ``step_XXXXXXXX.tmp`` and renamed into place once
 ``COMMITTED`` is in it, so a torn write is never taken for a checkpoint.
-This is the single-process manager: restoring onto a mesh of cards waits
-for the port's distributed slice.
+
+Under a mesh every rank calls ``save``: each DTensor leaf is gathered whole
+(a collective) and rank 0 writes; the others wait for the write on the next
+``wait``.  A checkpoint holds host arrays and no layout, so ``restore(...,
+sharding_fn=)`` distributes each leaf onto the live mesh, whatever mesh
+wrote it (a resharded restore: elastic training after losing cards).
 """
 from __future__ import annotations
 
@@ -21,18 +25,30 @@ import os
 import shutil
 import threading
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import current_mesh_info, full_value
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 
 def _to_host(tree: Any) -> Any:
     """A host copy of every leaf: the optimizer updates the live tensors in
-    place while the writer thread runs, so a CPU tensor is copied too."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(), tree)
+    place while the writer thread runs, so a CPU tensor is copied too.  A
+    DTensor is gathered whole first."""
+    return tree_map(lambda t: full_value(t.detach()).to("cpu", copy=True)
+                    .numpy(), tree)
+
+
+def _distribute(leaf: torch.Tensor, mesh: Any, placements) -> torch.Tensor:
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    if placements is None:
+        placements = [Replicate()] * mesh.ndim
+    return distribute_tensor(leaf, mesh, placements)
 
 
 class CheckpointManager:
@@ -42,6 +58,9 @@ class CheckpointManager:
         self.async_write = async_write
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._pending = False  # a save under a process group not yet met
+        #: this process writes: the only one, or rank 0 of the group
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
         os.makedirs(directory, exist_ok=True)
 
     # ----------------------------------------------------------------- save
@@ -52,6 +71,9 @@ class CheckpointManager:
         ``wait``."""
         host_tree = _to_host(tree)
         self.wait()
+        self._pending = dist.is_initialized()
+        if not self.writer:
+            return
         if self.async_write:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_tree, metadata or {}),
@@ -64,6 +86,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            # every rank meets rank 0 once its write is on disk
+            self._pending = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -126,11 +152,22 @@ class CheckpointManager:
         return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
 
     def restore(self, step: int, like: Any,
-                device: torch.device | str = "cuda") -> Any:
+                device: torch.device | str = "cuda",
+                sharding_fn: Callable[[str], Any] | None = None) -> Any:
         """The tree of ``like`` (nested dicts whose leaves have a ``shape``)
-        filled from step ``step``, as tensors on ``device``.  Raises
+        filled from step ``step``, as tensors on ``device``.  With
+        ``sharding_fn``, ``sharding_fn(key)`` gives each leaf's placements
+        on the active mesh (``use_mesh_info``; None: replicated), and the
+        leaf is distributed onto that mesh from the host array.  Raises
         ``KeyError`` for a leaf the checkpoint lacks and ``ValueError`` for
         one whose shape differs."""
+        mesh = None
+        if sharding_fn is not None:
+            info = current_mesh_info()
+            if info is None:
+                raise RuntimeError("restore(sharding_fn=...) needs an active "
+                                   "mesh (use_mesh_info)")
+            mesh = info.mesh
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -143,15 +180,19 @@ class CheckpointManager:
                 if tuple(arr.shape) != tuple(proto.shape):
                     raise ValueError(f"{key}: shape {arr.shape} != "
                                      f"{tuple(proto.shape)}")
-                leaves.append(torch.from_numpy(arr).to(device))
+                leaf = torch.from_numpy(arr).to(device)
+                if mesh is not None:
+                    leaf = _distribute(leaf, mesh, sharding_fn(key))
+                leaves.append(leaf)
         return tree_unflatten(like, leaves)
 
-    def restore_latest(self, like: Any, device: torch.device | str = "cuda"
+    def restore_latest(self, like: Any, device: torch.device | str = "cuda",
+                       sharding_fn: Callable[[str], Any] | None = None
                        ) -> tuple[int, Any] | None:
         step = self.latest_step()
         if step is None:
             return None
-        return step, self.restore(step, like, device)
+        return step, self.restore(step, like, device, sharding_fn)
 
     def metadata(self, step: int) -> dict:
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:

@@ -10,6 +10,12 @@ no hand-written kernel: neither the flash nor the WKV kernel has a
 backward, in the JAX package or here, so attention trains through the plain
 ``attention_core`` and RWKV-6 through the chunked form.
 
+``train(mesh_info=...)`` trains under a mesh (``launch/mesh.py``; the
+process group is the caller's): the parameters and AdamW's moments are
+DTensors laid out per ``param_axes``, each batch is placed
+``("batch", "seq_act")``, and a resumed checkpoint is restored onto the
+mesh.
+
     python -m repro_torch.launch.train --device cpu --arch rwkv6-1.6b \\
         --steps 4 --batch 2 --seq 32 --log-every 2 --ckpt-dir /tmp/ck
 """
@@ -25,9 +31,11 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, list_configs
 from repro_torch.data import TokenDataset
+from repro_torch.distributed.sharding import (MeshInfo, distribute_tree,
+                                              full_value, use_mesh_info)
 from repro_torch.models import LanguageModel
 from repro_torch.optim import AdamW, OptConfig
-from repro_torch.utils import tree_leaves, tree_unflatten
+from repro_torch.utils import tree_flatten, tree_leaves, tree_unflatten
 
 
 def smoke_config(arch: str):
@@ -43,29 +51,48 @@ def make_train_step(model: LanguageModel, opt: AdamW):
     loss does not read (the token table when ``batch["embeds"]`` replaces
     it) gets a zero gradient, as under ``jax.grad``.  ``metrics`` holds
     ``train_loss``'s metrics and the optimizer's stats as 0-d device
-    tensors, so a step does not wait for the card."""
+    tensors, so a step does not wait for the card.  Under a mesh each
+    gradient is laid out as its parameter before the update (autograd may
+    leave it partial or replicated), and the metrics are whole tensors."""
 
     def train_step(params: dict, opt_state: dict, batch: dict):
         leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
         total, metrics = model.train_loss(params, batch)
         grads = torch.autograd.grad(total, leaves, allow_unused=True,
                                     materialize_grads=True)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if hasattr(p, "device_mesh") else g
+                 for p, g in zip(leaves, grads)]
         # drop the graph before the update: the bf16 weight copies it holds
         # are 5 GB at gemma-2b's width
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: full_value(v.detach()) for k, v in metrics.items()}
         del total
         params, opt_state, stats = opt.update(tree_unflatten(params, grads),
                                               opt_state, params)
+        stats = {k: full_value(v) for k, v in stats.items()}
         return params, opt_state, {**metrics, **stats}
 
     return train_step
+
+
+def opt_state_shardings(params: dict):
+    """``sharding_fn`` for a restore of ``{"params", "opt_state"}`` onto the
+    mesh of ``params`` (DTensors): the moments take their parameter's
+    placements; the step count (None) is replicated."""
+    placements = {}
+    for key, p in tree_flatten(params):
+        placements[f"params/{key}"] = p.placements
+        for moment in ("m", "v"):
+            placements[f"opt_state/{moment}/{key}"] = p.placements
+    return placements.get
 
 
 def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
           global_batch: int = 8, seq_len: int = 128, peak_lr: float = 3e-3,
           ckpt_dir: str | None = None, save_every: int = 20,
           log_every: int = 10, resume: bool = True, seed: int = 0,
-          preempt_at: int | None = None, partition: str = "2024-01/all",
+          preempt_at: int | None = None, mesh_info: MeshInfo | None = None,
+          partition: str = "2024-01/all",
           device: torch.device | str = "cuda") -> dict[str, Any]:
     """Train ``arch`` for ``steps`` steps from seed-``seed`` weights (or from
     the latest checkpoint in ``ckpt_dir``).  Metrics are read on the host
@@ -74,7 +101,8 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
     ``checkpoint`` says what the run restored and wrote: the step it
     resumed from (0 for none), the seconds of the restore and of the last
     save (from the call until the write is on disk), and the bytes of that
-    save (0 without ``ckpt_dir``)."""
+    save (0 without ``ckpt_dir``).  With ``mesh_info`` every rank of the
+    mesh calls ``train``; ``device`` must be the mesh's device type."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     if cfg.enc_dec:  # the reference's train() would fail on batch["frames"]
         raise ValueError(f"{arch}: train() feeds token batches only, and an "
@@ -86,56 +114,64 @@ def train(arch: str = "gemma-2b", smoke: bool = True, steps: int = 50,
     data = TokenDataset(vocab_size=cfg.vocab_size, seq_len=seq_len,
                         global_batch=global_batch, partition=partition)
 
-    params = model.init(seed)
-    opt_state = opt.init(params)
-    step = 0
-    ckpt = {"resumed_step": 0, "restore_s": 0.0, "save_s": 0.0, "bytes": 0}
+    with use_mesh_info(mesh_info):
+        params = model.init(seed)
+        if mesh_info is not None:
+            params = distribute_tree(params, model.param_axes, mesh_info)
+        opt_state = opt.init(params)
+        step = 0
+        ckpt = {"resumed_step": 0, "restore_s": 0.0, "save_s": 0.0, "bytes": 0}
 
-    mgr = None
-    if ckpt_dir:
-        mgr = CheckpointManager(ckpt_dir, keep=3)
-        if resume:
-            t = time.perf_counter()
-            got = mgr.restore_latest({"params": params, "opt_state": opt_state},
-                                     device=device)
-            if got is not None:
-                step, tree = got
-                params, opt_state = tree["params"], tree["opt_state"]
-                ckpt["resumed_step"] = step
-                ckpt["restore_s"] = time.perf_counter() - t
-                print(f"[train] resumed from step {step}")
+        mgr = None
+        if ckpt_dir:
+            mgr = CheckpointManager(ckpt_dir, keep=3)
+            if resume:
+                t = time.perf_counter()
+                got = mgr.restore_latest(
+                    {"params": params, "opt_state": opt_state}, device=device,
+                    sharding_fn=(None if mesh_info is None else
+                                 opt_state_shardings(params)))
+                if got is not None:
+                    step, tree = got
+                    params, opt_state = tree["params"], tree["opt_state"]
+                    ckpt["resumed_step"] = step
+                    ckpt["restore_s"] = time.perf_counter() - t
+                    print(f"[train] resumed from step {step}")
 
-    train_step = make_train_step(model, opt)
-    history: list[dict[str, float]] = []
-    t0 = time.time()
-    while step < steps:
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in data.batch(step).items()}
-        params, opt_state, metrics = train_step(params, opt_state, batch)
-        step += 1
-        if step % log_every == 0 or step == steps:
-            m = {k: float(v) for k, v in metrics.items()}
-            m["step"] = step
-            m["wall_s"] = time.time() - t0
-            history.append(m)
-            print(f"[train {arch}] step {step}: loss={m['loss']:.4f} "
-                  f"aux_loss={m['aux_loss']:.4f} gnorm={m['grad_norm']:.3f} "
-                  f"lr={m['lr']:.2e}")
-        if mgr and (step % save_every == 0 or step == steps):
-            t = time.perf_counter()
-            mgr.save(step, {"params": params, "opt_state": opt_state},
-                     metadata={"arch": arch, "step": step})
-            if step == steps:  # the last save: wait for the write
-                mgr.wait()
-                ckpt["save_s"] = time.perf_counter() - t
-                ckpt["bytes"] = mgr.nbytes(step)
-        if preempt_at is not None and step >= preempt_at:
-            if mgr:
-                mgr.wait()
-            print(f"[train] simulated preemption at step {step}")
-            raise SystemExit(17)  # preemption exit code
-    if mgr:
-        mgr.wait()
+        train_step = make_train_step(model, opt)
+        history: list[dict[str, float]] = []
+        t0 = time.time()
+        while step < steps:
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in data.batch(step).items()}
+            if mesh_info is not None:
+                batch = {k: mesh_info.distribute(v, ("batch", "seq_act"))
+                         for k, v in batch.items()}
+            params, opt_state, metrics = train_step(params, opt_state, batch)
+            step += 1
+            if step % log_every == 0 or step == steps:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                m["wall_s"] = time.time() - t0
+                history.append(m)
+                print(f"[train {arch}] step {step}: loss={m['loss']:.4f} "
+                      f"aux_loss={m['aux_loss']:.4f} gnorm={m['grad_norm']:.3f} "
+                      f"lr={m['lr']:.2e}")
+            if mgr and (step % save_every == 0 or step == steps):
+                t = time.perf_counter()
+                mgr.save(step, {"params": params, "opt_state": opt_state},
+                         metadata={"arch": arch, "step": step})
+                if step == steps:  # the last save: wait for the write
+                    mgr.wait()
+                    ckpt["save_s"] = time.perf_counter() - t
+                    ckpt["bytes"] = mgr.nbytes(step) if mgr.writer else 0
+            if preempt_at is not None and step >= preempt_at:
+                if mgr:
+                    mgr.wait()
+                print(f"[train] simulated preemption at step {step}")
+                raise SystemExit(17)  # preemption exit code
+        if mgr:
+            mgr.wait()
 
     losses = [h["loss"] for h in history]
     return {"history": history, "final_loss": losses[-1] if losses else None,

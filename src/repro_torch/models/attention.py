@@ -1,10 +1,12 @@
 """Attention: GQA/MQA/MHA, causal + bidirectional + sliding-window, cross.
 
-Port of ``repro.models.attention`` (the mesh-only
-``_shard_aligned_attention`` is later work).  The plain computation is
-q-chunked so it never holds a full (Sq x Skv) score tensor for long
-prompts; full prefill with contiguous positions goes through the
-hand-written flash kernel instead (``kernels/ops.py``), which computes the
+Port of ``repro.models.attention``, with its sharding constraints
+(``constrain``: no-ops without a mesh) and, under a mesh whose model axis
+the head count does not divide, the sequence-sharded
+``_shard_aligned_attention``.  The plain computation is q-chunked so it
+never holds a full (Sq x Skv) score tensor for long prompts; full prefill
+with contiguous positions goes through the hand-written flash kernel
+instead (``kernels/ops.py``), which computes the
 same function: causal self-attention, and non-causal over the encoder's
 frames for the encoder's own layers and the decoder's cross-attention.
 
@@ -28,8 +30,11 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, current_mesh_info,
+                                              shard_map)
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, dense_init, torch_dtype
+from repro_torch.models.layers import (Param, apply_rope, dense_init,
+                                       torch_dtype)
 from repro_torch.utils import Spec
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -60,6 +65,21 @@ class ModelCtx:
     def pos2d(self) -> torch.Tensor:
         """(B, S) positions regardless of mrope (temporal component)."""
         return self.positions[0] if self.positions.ndim == 3 else self.positions
+
+
+def kv_heads_shardable(n_kv_heads: int) -> bool:
+    info = current_mesh_info()
+    if info is None:
+        return True
+    return n_kv_heads % max(1, info.axis_size("model")) == 0
+
+
+def cache_axes(n_kv_heads: int) -> tuple:
+    """(B, S, H_kv, D) cache axes; shard heads if divisible, else the seq dim
+    (SP-decode: long KV caches spread over the model axis)."""
+    if kv_heads_shardable(n_kv_heads):
+        return ("batch", None, "kv_heads", None)
+    return ("batch", "kv_seq", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -108,11 +128,22 @@ def attention_core(
     G = Hq // Hkv
     scale = scale if scale is not None else Dk ** -0.5
 
+    # Under a mesh whose model axis the head count does not divide, q is
+    # sequence-sharded: fold the sharded dim out of the q-chunk loop so each
+    # chunk is device-local (``attention.py:113-127``)
+    tp_out = _shard_aligned_attention(q, pos_q, k, v, pos_k, causal=causal,
+                                      window=window, scale=scale)
+    if tp_out is not None:
+        return tp_out
+
     if Sq > 1:
         # GQA: expand K/V to the q-head count (head h reads kv head h // G)
         if G > 1:
             k = k.repeat_interleave(G, dim=2)
             v = v.repeat_interleave(G, dim=2)
+            if kv_heads_shardable(Hq):
+                k = constrain(k, "batch", None, "heads", None)
+                v = constrain(v, "batch", None, "heads", None)
         return _attention_expanded(q, k, v, pos_q, pos_k, causal=causal,
                                    window=window, scale=scale)
 
@@ -165,6 +196,76 @@ def _attention_expanded(q, k, v, pos_q, pos_k, *, causal, window, scale):
     return torch.cat(outs, dim=1)
 
 
+_SCORE_BYTES_BUDGET = 700e6  # per-device f32 score-block budget
+
+
+def _attn_block_tp(q_blk, pq, k, v, pk, causal, window, scale):
+    """q_blk: (B, tp, c, Hkv, G, D) with tp sharded; k/v replicated."""
+    B = q_blk.shape[0]
+    hq = q_blk.shape[3] * q_blk.shape[4]
+    dv = v.shape[-1]
+    s = torch.einsum("btqhgd,bkhd->bhgtqk", q_blk.float(), k.float()) * scale
+    mask = _mask(pq[:, None, None, :, :, None],
+                 pk[:, None, None, None, None, :], causal, window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgtqk,bkhd->btqhgd", p.to(v.dtype), v)
+    return o.reshape(B, q_blk.shape[1], q_blk.shape[2], hq, dv)
+
+
+def _shard_aligned_attention(q, pos_q, k, v, pos_k, *, causal, window,
+                             scale):
+    """Returns the attention output for the seq-sharded-q regime, or None if
+    the plain path applies (no mesh / heads shardable / tiny seq)
+    (``attention.py:225-261``).  S is split as (tp, L) with tp over the
+    model axis; each device runs its own L rows in chunks of ``c2`` rows
+    (the f32 score block of a chunk within ``_SCORE_BYTES_BUDGET``) against
+    the whole K/V, inside a ``local_map``.  Masks come from explicit
+    positions, so the non-contiguous row blocks stay exact."""
+    info = current_mesh_info()
+    if info is None:
+        return None
+    tp = info.axis_size("model")
+    B, Sq, Hq, Dk = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    if (tp <= 1 or Sq <= 1 or kv_heads_shardable(Hq) or Sq % tp
+            or Sq <= _pick_chunk(Sq)):
+        return None
+    dp = info.axis_size("data") * info.axis_size("pod")
+    b_loc = max(1, B // max(dp, 1))
+    ll = Sq // tp
+    row_bytes = b_loc * Hq * Skv * 4
+    c2 = max(16, int(_SCORE_BYTES_BUDGET // max(row_bytes, 1)))
+    c2 = min(c2, ll)
+    while ll % c2:
+        c2 -= 1
+    # split the heads into (Hkv, G) only here, where they are not sharded
+    qs = constrain(q.reshape(B, tp, ll, Hkv, G, Dk),
+                   "batch", "seq_act", None, None, None, None)
+    ps = pos_q.reshape(B, tp, ll)
+
+    def local(q_l, p_l, k_l, v_l, pk_l):
+        if c2 == ll:  # one device-local block, no loop
+            return _attn_block_tp(q_l, p_l, k_l, v_l, pk_l, causal, window,
+                                  scale)
+        return torch.cat([
+            _attn_block_tp(q_l[:, :, c:c + c2], p_l[:, :, c:c + c2], k_l, v_l,
+                           pk_l, causal, window, scale)
+            for c in range(0, ll, c2)], dim=2)
+
+    spec = info.spec
+    out = shard_map(local, in_specs=(
+        spec(qs.shape, ("batch", "seq_act", None, None, None, None)),
+        spec(ps.shape, ("batch", "seq_act", None)),
+        spec(k.shape, ("batch", None, None, None)),
+        spec(v.shape, ("batch", None, None, None)),
+        spec(pos_k.shape, ("batch", None))),
+        out_specs=spec((B, tp, ll, Hq, Dv), ("batch", "seq_act", None, None,
+                                             None)))(qs, ps, k, v, pos_k)
+    return out.reshape(B, Sq, Hq, Dv)
+
+
 # ---------------------------------------------------------------------------
 # Cache plumbing (full + ring buffers, explicit slot positions)
 # ---------------------------------------------------------------------------
@@ -172,11 +273,11 @@ def _attention_expanded(q, k, v, pos_q, pos_k, *, causal, window, scale):
 
 def kv_cache_specs(batch: int, size: int, n_kv: int, dk: int, dv: int,
                    dtype) -> dict:
-    ax = ("batch", None, "kv_heads", None)
+    ax = cache_axes(n_kv)
     return {
         "k": Spec((batch, size, n_kv, dk), dtype, ax),
         "v": Spec((batch, size, n_kv, dv), dtype, ax),
-        "pos": Spec((batch, size), torch.int32, ("batch", None)),
+        "pos": Spec((batch, size), torch.int32, ("batch", ax[1])),
     }
 
 
@@ -277,10 +378,14 @@ def init_attention(gen: torch.Generator | None, cfg: ModelConfig, *,
     dt = cfg.param_dtype
     kw = dict(stack=stack, device=device)
     return {
-        "w_q": dense_init(gen, (d, h, hd), 1, dt, **kw),
-        "w_k": dense_init(gen, (d, hkv, hd), 1, dt, **kw),
-        "w_v": dense_init(gen, (d, hkv, hd), 1, dt, **kw),
-        "w_o": dense_init(gen, (h, hd, d), 2, dt, **kw),
+        "w_q": Param(dense_init(gen, (d, h, hd), 1, dt, **kw),
+                     ("embed_fsdp", "heads", None)),
+        "w_k": Param(dense_init(gen, (d, hkv, hd), 1, dt, **kw),
+                     ("embed_fsdp", "kv_heads", None)),
+        "w_v": Param(dense_init(gen, (d, hkv, hd), 1, dt, **kw),
+                     ("embed_fsdp", "kv_heads", None)),
+        "w_o": Param(dense_init(gen, (h, hd, d), 2, dt, **kw),
+                     ("heads", None, "embed_fsdp")),
     }
 
 
@@ -302,10 +407,18 @@ def apply_attention(
     paged: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     cdt = torch_dtype(cfg.compute_dtype)
+    S = x.shape[1]
+    heads_tp = kv_heads_shardable(cfg.n_heads)
+    # Megatron-style SP->TP boundary: un-shard the sequence once so the
+    # q/k/v projections and attention run TP-local (``attention.py:395-399``)
+    if heads_tp and S > 1:
+        x = constrain(x, "batch", None, None)
     q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(cdt))
+    q = constrain(q, "batch", None if heads_tp else "seq_act",
+                  "heads" if heads_tp else None, None)
     if cross:
         o, new_cache = _cross(p, cdt, q, ctx, cache)
-        return torch.einsum("bshk,hkd->bsd", o, p["w_o"].to(cdt)), new_cache
+        return _out(p, cdt, o, heads_tp), new_cache
     pos_q = ctx.pos2d
     k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(cdt))
     v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(cdt))
@@ -329,7 +442,9 @@ def apply_attention(
             window=window)
     elif ctx.mode == "decode":
         new_cache = append_cache(cache, {"k": k, "v": v}, ctx.cache_pos)
-        o = attention_core(q, new_cache["k"].to(cdt), new_cache["v"].to(cdt),
+        kv_ax = cache_axes(cfg.n_kv_heads)
+        o = attention_core(q, constrain(new_cache["k"], *kv_ax).to(cdt),
+                           constrain(new_cache["v"], *kv_ax).to(cdt),
                            pos_q, new_cache["pos"], causal=ctx.causal,
                            window=window)
     elif ctx.mode == "chunk_prefill":
@@ -348,8 +463,16 @@ def apply_attention(
         else:
             o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
                                window=window)
+    return _out(p, cdt, o, heads_tp), new_cache
+
+
+def _out(p: dict, cdt: torch.dtype, o: torch.Tensor,
+         heads_tp: bool) -> torch.Tensor:
+    """The output projection, heads-sharded in and sequence-sharded out."""
+    o = constrain(o, "batch", None if heads_tp else "seq_act",
+                  "heads" if heads_tp else None, None)
     out = torch.einsum("bshk,hkd->bsd", o, p["w_o"].to(cdt))
-    return out, new_cache
+    return constrain(out, "batch", "seq_act", None)
 
 
 def _cross(p: dict, cdt: torch.dtype, q: torch.Tensor, ctx: ModelCtx,

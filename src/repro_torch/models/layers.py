@@ -2,7 +2,11 @@
 sinusoids), MLPs.
 
 Port of ``repro.models.layers``.  Weights keep the JAX layouts (``(d, ff)``
-MLP matrices, ``(d,)`` norm scales); activations are ``(..., d)``.  Every
+MLP matrices, ``(d,)`` norm scales); activations are ``(..., d)``.  The
+``init_*`` functions build ``Param(value, axes)`` leaves, as JAX does:
+``axes`` names each dim of one layer's weight with a logical sharding axis
+(``repro_torch.distributed.sharding``), and ``split`` separates the value
+tree from the axes tree.  Every
 function that takes weights casts them to ``cfg.compute_dtype`` at use, as
 JAX does; a weight already held in that dtype (see
 ``LanguageModel.cast_for_compute``) passes through without a copy.
@@ -11,12 +15,14 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import replicate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -24,6 +30,22 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config's ``param_dtype`` / ``compute_dtype``."""
     return _DTYPES[name]
+
+
+class Param(NamedTuple):
+    """A weight and the logical axes of one layer's copy of it (a stacked
+    weight's leading ``layers`` axis is added by ``init_segment``)."""
+    value: torch.Tensor
+    axes: tuple[str | None, ...]
+
+
+def split(tree: Any) -> tuple[Any, Any]:
+    """(values, axes) from a dict tree whose leaves are ``Param``."""
+    if isinstance(tree, Param):
+        return tree.value, tuple(tree.axes)
+    pairs = {k: split(v) for k, v in tree.items()}
+    return ({k: v for k, (v, _) in pairs.items()},
+            {k: a for k, (_, a) in pairs.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -61,10 +83,11 @@ def init_norm(cfg: ModelConfig, d: int, *, stack: int = 0,
               device: torch.device | str = "cuda") -> dict:
     shape = ((stack,) if stack else ()) + (d,)
     dt = torch_dtype(cfg.param_dtype)
-    p = {"scale": (torch.zeros(shape, dtype=dt, device=device) if cfg.gemma_norm
-                   else torch.ones(shape, dtype=dt, device=device))}
+    p = {"scale": Param(torch.zeros(shape, dtype=dt, device=device)
+                        if cfg.gemma_norm
+                        else torch.ones(shape, dtype=dt, device=device), (None,))}
     if cfg.norm_type == "layernorm":
-        p["bias"] = torch.zeros(shape, dtype=dt, device=device)
+        p["bias"] = Param(torch.zeros(shape, dtype=dt, device=device), (None,))
     return p
 
 
@@ -106,7 +129,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     head_dim = x.shape[-1]
     rot = rot_dim if rot_dim is not None else int(head_dim * cfg.rope_fraction)
     rot = min(rot, head_dim)
-    inv_freq = rope_freqs(cfg, rot, x.device)
+    inv_freq = replicate(rope_freqs(cfg, rot, x.device))
     if cfg.pos_type == "mrope":
         sections = cfg.mrope_sections  # in frequency pairs, summing to rot/2
         if positions.ndim != 3 or sum(sections) != rot // 2:
@@ -158,13 +181,15 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None,
     """A GLU or dense MLP of width ``d_ff`` (default ``cfg.d_ff``; MoE's
     shared experts pass ``n_shared_experts * d_ff_expert``)."""
     d, ff, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.param_dtype
+    kw = dict(stack=stack, device=device)
     p = {
-        "w_up": dense_init(gen, (d, ff), 1, dt, stack=stack, device=device),
-        "w_down": dense_init(gen, (ff, d), 1, dt, stack=stack, device=device),
+        "w_up": Param(dense_init(gen, (d, ff), 1, dt, **kw), ("embed_fsdp", "mlp")),
+        "w_down": Param(dense_init(gen, (ff, d), 1, dt, **kw),
+                        ("mlp", "embed_fsdp")),
     }
     if cfg.mlp_type == "glu":
-        p["w_gate"] = dense_init(gen, (d, ff), 1, dt, stack=stack,
-                                 device=device)
+        p["w_gate"] = Param(dense_init(gen, (d, ff), 1, dt, **kw),
+                            ("embed_fsdp", "mlp"))
     return p
 
 

@@ -1,6 +1,7 @@
 """Multi-head Latent Attention (DeepSeek-V2 [arXiv:2405.04434], MiniCPM3).
 
-Port of ``repro.models.mla`` (without the mesh's sharding constraints).
+Port of ``repro.models.mla``, with its sharding constraints
+(``constrain``: no-ops without a mesh).
 Train and prefill use the expanded path: the latent ``c_kv`` is expanded to
 per-head keys and values, and a full prefill with contiguous positions runs
 the flash kernel at D = nope + rope, Dv = v_head_dim, as the other
@@ -22,11 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import (NEG_INF, ModelCtx, append_cache,
-                                          attention_core, prefill_cache)
-from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
-                                       torch_dtype)
+                                          attention_core, kv_heads_shardable,
+                                          prefill_cache)
+from repro_torch.models.layers import (Param, apply_norm, apply_rope,
+                                       dense_init, torch_dtype)
 from repro_torch.utils import Spec
 
 #: the bf16 flash bodies load head dims in 16-element rows
@@ -43,21 +46,30 @@ def init_mla(gen: torch.Generator | None, cfg: ModelConfig, *, stack: int = 0,
 
     def ones(n: int) -> dict:
         shape = ((stack,) if stack else ()) + (n,)
-        return {"scale": torch.ones(shape, dtype=torch_dtype(dt), device=device)}
+        return {"scale": Param(torch.ones(shape, dtype=torch_dtype(dt),
+                                          device=device), (None,))}
 
     p: dict = {}
     if cfg.q_lora_rank:
-        p["w_dq"] = dense_init(gen, (d, cfg.q_lora_rank), 1, dt, **kw)
+        p["w_dq"] = Param(dense_init(gen, (d, cfg.q_lora_rank), 1, dt, **kw),
+                          ("embed_fsdp", "lora"))
         p["q_norm"] = ones(cfg.q_lora_rank)
-        p["w_uq"] = dense_init(gen, (cfg.q_lora_rank, h, qk), 1, dt, **kw)
+        p["w_uq"] = Param(dense_init(gen, (cfg.q_lora_rank, h, qk), 1, dt,
+                                     **kw), ("lora", "heads", None))
     else:
-        p["w_uq"] = dense_init(gen, (d, h, qk), 1, dt, **kw)
-    p["w_dkv"] = dense_init(gen, (d, cfg.kv_lora_rank), 1, dt, **kw)
+        p["w_uq"] = Param(dense_init(gen, (d, h, qk), 1, dt, **kw),
+                          ("embed_fsdp", "heads", None))
+    p["w_dkv"] = Param(dense_init(gen, (d, cfg.kv_lora_rank), 1, dt, **kw),
+                       ("embed_fsdp", "lora"))
     p["kv_norm"] = ones(cfg.kv_lora_rank)
-    p["w_kr"] = dense_init(gen, (d, rope), 1, dt, **kw)
-    p["w_uk"] = dense_init(gen, (cfg.kv_lora_rank, h, nope), 1, dt, **kw)
-    p["w_uv"] = dense_init(gen, (cfg.kv_lora_rank, h, vdim), 1, dt, **kw)
-    p["w_o"] = dense_init(gen, (h, vdim, d), 2, dt, **kw)
+    p["w_kr"] = Param(dense_init(gen, (d, rope), 1, dt, **kw),
+                      ("embed_fsdp", None))
+    p["w_uk"] = Param(dense_init(gen, (cfg.kv_lora_rank, h, nope), 1, dt,
+                                 **kw), ("lora", "heads", None))
+    p["w_uv"] = Param(dense_init(gen, (cfg.kv_lora_rank, h, vdim), 1, dt,
+                                 **kw), ("lora", "heads", None))
+    p["w_o"] = Param(dense_init(gen, (h, vdim, d), 2, dt, **kw),
+                     ("heads", None, "embed_fsdp"))
     return p
 
 
@@ -69,12 +81,19 @@ def _rms(scale: torch.Tensor, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
 
 
 def _queries(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx):
+    """Under a mesh the down-projection runs sequence-sharded and only the
+    q_lora_rank latent crosses the SP->TP boundary (``mla.py:54-81``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    gather = kv_heads_shardable(cfg.n_heads) and x.shape[1] > 1
     if cfg.q_lora_rank:
         cq = _rms(p["q_norm"]["scale"], cfg, x @ p["w_dq"].to(cdt))
+        if gather:
+            cq = constrain(cq, "batch", None, None)  # SP->TP on the latent
         q = torch.einsum("bsl,lhk->bshk", cq, p["w_uq"].to(cdt))
     else:
+        if gather:
+            x = constrain(x, "batch", None, None)
         q = torch.einsum("bsd,dhk->bshk", x, p["w_uq"].to(cdt))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     return q_nope, apply_rope(q_rope, ctx.positions, cfg, rot_dim=rope)
@@ -137,6 +156,7 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
               cache: dict | None) -> tuple[torch.Tensor, dict | None]:
     cdt = torch_dtype(cfg.compute_dtype)
     B, S, _ = x.shape
+    heads_tp = kv_heads_shardable(cfg.n_heads)
     q_nope, q_rope = _queries(p, cfg, x, ctx)
     ckv_t, kr_t = _latents(p, cfg, x, ctx)
     pos_q = ctx.pos2d
@@ -144,8 +164,10 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
     if ctx.mode == "decode":
         assert cache is not None
         append_cache(cache, {"ckv": ckv_t, "kr": kr_t}, ctx.cache_pos)
-        o = _absorbed(p, cfg, q_nope, q_rope, cache["ckv"].to(cdt),
-                      cache["kr"].to(cdt), ctx.cache_pos[:, None], cache["pos"])
+        ckv = constrain(cache["ckv"], "batch", "kv_seq", None).to(cdt)
+        kr = constrain(cache["kr"], "batch", "kv_seq", None).to(cdt)
+        o = _absorbed(p, cfg, q_nope, q_rope, ckv, kr, ctx.cache_pos[:, None],
+                      cache["pos"])
     elif ctx.mode == "chunk_prefill":
         assert cache is not None
         # attend over (old cache contents + this chunk), taken before the
@@ -156,16 +178,28 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
         prefill_cache(cache, {"ckv": ckv_t, "kr": kr_t}, pos_q)
         o = _absorbed(p, cfg, q_nope, q_rope, ckv, kr, pos_q, pos_k)
     else:  # train, prefill: the expanded path
+        # the latents are computed sequence-sharded; only (kv_lora + rope)
+        # dims cross the SP->TP boundary (``mla.py:171-192``)
         h, rope = cfg.n_heads, cfg.qk_rope_head_dim
-        k_nope = torch.einsum("bsl,lhn->bshn", ckv_t, p["w_uk"].to(cdt))
-        v = torch.einsum("bsl,lhv->bshv", ckv_t, p["w_uv"].to(cdt))
-        k = torch.cat([k_nope, kr_t[:, :, None, :].expand(B, S, h, rope)], dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
+        ax = ("batch", None if heads_tp else "seq_act",
+              "heads" if heads_tp else None, None)
+        ckv, kr = ckv_t, kr_t
+        if heads_tp and S > 1:
+            ckv = constrain(ckv, "batch", None, None)
+            kr = constrain(kr, "batch", None, None)
+        k_nope = constrain(torch.einsum("bsl,lhn->bshn", ckv, p["w_uk"].to(cdt)),
+                           *ax)
+        v = constrain(torch.einsum("bsl,lhv->bshv", ckv, p["w_uv"].to(cdt)), *ax)
+        kr_b = constrain(kr[:, :, None, :].expand(B, S, h, rope), *ax)
+        k = constrain(torch.cat([k_nope, kr_b], dim=-1), *ax)
+        q = constrain(torch.cat([q_nope, q_rope], dim=-1), *ax)
         if cache is not None:  # prefill: persist the compressed latents
             prefill_cache(cache, {"ckv": ckv_t, "kr": kr_t}, pos_q)
         if ctx.mode == "prefill" and ctx.contiguous:
             o = _flash(q, k, v, ctx.causal)
         else:
             o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal)
+    o = constrain(o, "batch", None if heads_tp else "seq_act",
+                  "heads" if heads_tp else None, None)
     out = torch.einsum("bshv,hvd->bsd", o, p["w_o"].to(cdt))
-    return out, cache
+    return constrain(out, "batch", "seq_act", None), cache

@@ -17,12 +17,15 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, replicate
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import ModelCtx
-from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
-                                       sinusoidal_positions, torch_dtype)
+from repro_torch.models.layers import (Param, apply_norm, embed_init,
+                                       init_norm, sinusoidal_positions, split,
+                                       torch_dtype)
 from repro_torch.utils import Spec, tree_map
 
 #: matrices that JAX reads in f32 at every use, never in the compute dtype:
@@ -43,36 +46,59 @@ class LanguageModel:
         if cfg.enc_dec:
             self.enc_segments = tfm.plan_segments(
                 cfg, [("attn", False)] * cfg.n_enc_layers)
+        self._axes: dict | None = None
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> dict:
         """Weights on ``self.device`` from one seeded generator (the numbers
-        differ from ``jax.random``'s; tests bridge JAX weights instead)."""
+        differ from ``jax.random``'s; tests bridge JAX weights instead).
+        Records the logical axes of every leaf (``param_axes``)."""
         gen = None
         if self.device.type != "meta":
             gen = torch.Generator(device=self.device).manual_seed(seed)
         cfg, dev = self.cfg, self.device
-        params: dict[str, Any] = {
-            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model),
-                                cfg.param_dtype, device=dev)}
+        tree: dict[str, Any] = {
+            "embed": Param(embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                      cfg.param_dtype, device=dev),
+                           ("vocab", "embed_fsdp"))}
         if not cfg.tie_embeddings:
-            params["out"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
-                                       cfg.param_dtype, device=dev)
+            tree["out"] = Param(embed_init(gen, (cfg.d_model, cfg.vocab_size),
+                                           cfg.param_dtype, device=dev),
+                                ("embed_fsdp", "vocab"))
         if cfg.pos_type == "learned":
-            params["pos_embed"] = embed_init(
+            tree["pos_embed"] = Param(embed_init(
                 gen, (cfg.max_positions, cfg.d_model), cfg.param_dtype,
-                device=dev)
+                device=dev), (None, "embed_fsdp"))
         if cfg.embed_norm:
-            params["embed_ln"] = init_norm(cfg, cfg.d_model, device=dev)
+            tree["embed_ln"] = init_norm(cfg, cfg.d_model, device=dev)
+        params, axes = split(tree)
         for i, seg in enumerate(self.dec_segments):
-            params[f"seg{i}"] = tfm.init_segment(gen, cfg, seg, device=dev)
-        params["final_norm"] = init_norm(cfg, cfg.d_model, device=dev)
+            params[f"seg{i}"], axes[f"seg{i}"] = tfm.init_segment(
+                gen, cfg, seg, device=dev)
+        params["final_norm"], axes["final_norm"] = split(
+            init_norm(cfg, cfg.d_model, device=dev))
         if cfg.enc_dec:
-            enc = {f"seg{i}": tfm.init_segment(gen, cfg, seg, device=dev)
-                   for i, seg in enumerate(self.enc_segments)}
-            enc["final_norm"] = init_norm(cfg, cfg.d_model, device=dev)
-            params["enc"] = enc
+            enc, enc_axes = {}, {}
+            for i, seg in enumerate(self.enc_segments):
+                enc[f"seg{i}"], enc_axes[f"seg{i}"] = tfm.init_segment(
+                    gen, cfg, seg, device=dev)
+            enc["final_norm"], enc_axes["final_norm"] = split(
+                init_norm(cfg, cfg.d_model, device=dev))
+            params["enc"], axes["enc"] = enc, enc_axes
+        self._axes = axes
         return params
+
+    @property
+    def param_axes(self) -> dict:
+        """The logical axes of every parameter leaf, a tree of tuples keyed as
+        the parameters (``repro/models/model.py:85``): a scanned segment's
+        leaves start with ``"layers"``.  Computed on the meta device if
+        ``init`` has not run."""
+        if self._axes is None:
+            meta = LanguageModel(self.cfg, device="meta")
+            meta.init()
+            self._axes = meta._axes
+        return self._axes
 
     def param_shapes(self) -> dict:
         """Shape tree of ``init``'s output, computed on the meta device."""
@@ -140,26 +166,30 @@ class LanguageModel:
         if embeds is not None:
             x = embeds.to(cdt)
         else:
-            x = params["embed"][tokens.long()].to(cdt)
+            # a lookup, not indexing: DTensor shards embedding's backward
+            # (torch 2.11's index_put rule fails on a sharded index)
+            x = F.embedding(tokens.long(), params["embed"]).to(cdt)
         if cfg.emb_scale:
             x = x * math.sqrt(cfg.d_model)
         if cfg.embed_norm:
             x = apply_norm(params["embed_ln"], cfg, x)
-        return x
+        return constrain(x, "batch", "seq_act", None)
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = apply_norm(params["final_norm"], cfg, x)
         w = params["embed"].T if cfg.tie_embeddings else params["out"]
-        return (x @ w.to(torch_dtype(cfg.compute_dtype))).float()
+        logits = (x @ w.to(torch_dtype(cfg.compute_dtype))).float()
+        return constrain(logits, "batch", "seq_act", "vocab")
 
     def _positions(self, batch_size: int, seq: int,
                    given: torch.Tensor | None) -> torch.Tensor:
         """``given``, or 0..seq-1 in every row: (B, S), or three equal
-        streams (3, B, S) for M-RoPE."""
+        streams (3, B, S) for M-RoPE; replicated over the mesh if one is
+        active."""
         if given is not None:
-            return given
-        pos = torch.arange(seq, dtype=torch.int32, device=self.device)
+            return replicate(given)
+        pos = replicate(torch.arange(seq, dtype=torch.int32, device=self.device))
         if self.cfg.pos_type == "mrope":
             return pos.expand(3, batch_size, seq)
         return pos.expand(batch_size, seq)
@@ -192,7 +222,9 @@ class LanguageModel:
         cfg = self.cfg
         B, S, _ = frames.shape
         x = frames.to(torch_dtype(cfg.compute_dtype))
-        x = x + sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)[None]
+        x = x + replicate(sinusoidal_positions(S, cfg.d_model, x.dtype,
+                                               x.device))[None]
+        x = constrain(x, "batch", "seq_act", None)
         pos = self._positions(B, S, None)
         ctx = ModelCtx(mode="encode", positions=pos, causal=False,
                        contiguous=contiguous)
@@ -242,8 +274,8 @@ class LanguageModel:
         B, S = tokens.shape
         weights = batch.get("weights")
         if weights is None:
-            weights = torch.ones(tokens.shape, dtype=torch.float32,
-                                 device=tokens.device)
+            weights = replicate(torch.ones(B, S, dtype=torch.float32,
+                                           device=tokens.device))
         params = self.cast_for_train(params)
         pos = self._positions(B, S, batch.get("positions"))
         ctx = self._ctx(params, batch, False, mode="train", positions=pos)
@@ -255,9 +287,11 @@ class LanguageModel:
         lse = torch.logsumexp(logits, dim=-1)
         label_logit = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
         nll = (lse - label_logit) * weights
-        denom = torch.clamp(weights.sum(), min=1.0)
-        loss = nll.sum() / denom
-        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        denom = constrain(torch.clamp(weights.sum(), min=1.0))
+        loss = constrain(nll.sum() / denom)  # replicated under a mesh
+        if not isinstance(aux, torch.Tensor):  # no MoE layer: the float 0.0
+            aux = replicate(torch.tensor(aux, dtype=torch.float32,
+                                         device=loss.device))
         total = loss + cfg.router_aux_coef * aux
         metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
                    "total_loss": total}

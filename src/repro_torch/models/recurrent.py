@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import wkv_ref as wkv_recurrent
-from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.models.layers import Param, dense_init, torch_dtype
 from repro_torch.utils import Spec
 
 RG_LRU_C = 8.0  # Griffin's fixed gate exponent
@@ -60,16 +60,21 @@ def init_rglru(gen: torch.Generator | None, cfg: ModelConfig, *,
     a0.uniform_(0.9, 0.999, generator=gen)
     lam = torch.log(torch.expm1(-torch.log(a0) / RG_LRU_C))
     return {
-        "w_y": dense_init(gen, (d, w), 1, dt, **kw),
-        "w_x": dense_init(gen, (d, w), 1, dt, **kw),
-        "conv_w": zeros((cfg.conv_width, w)),
-        "conv_b": zeros((w,)),
-        "w_a": dense_init(gen, (w, w), 1, dt, **kw),
-        "b_a": zeros((w,)),
-        "w_i": dense_init(gen, (w, w), 1, dt, **kw),
-        "b_i": zeros((w,)),
-        "lam": lam,
-        "w_o": dense_init(gen, (w, d), 1, dt, **kw),
+        "w_y": Param(dense_init(gen, (d, w), 1, dt, **kw),
+                     ("embed_fsdp", "lru_width")),
+        "w_x": Param(dense_init(gen, (d, w), 1, dt, **kw),
+                     ("embed_fsdp", "lru_width")),
+        "conv_w": Param(zeros((cfg.conv_width, w)), (None, "lru_width")),
+        "conv_b": Param(zeros((w,)), ("lru_width",)),
+        "w_a": Param(dense_init(gen, (w, w), 1, dt, **kw),
+                     ("lru_width", "lru_width")),
+        "b_a": Param(zeros((w,)), ("lru_width",)),
+        "w_i": Param(dense_init(gen, (w, w), 1, dt, **kw),
+                     ("lru_width", "lru_width")),
+        "b_i": Param(zeros((w,)), ("lru_width",)),
+        "lam": Param(lam, ("lru_width",)),
+        "w_o": Param(dense_init(gen, (w, d), 1, dt, **kw),
+                     ("lru_width", "embed_fsdp")),
     }
 
 
@@ -214,21 +219,30 @@ def init_rwkv_time_mix(gen: torch.Generator | None, cfg: ModelConfig, *,
     u = torch.empty(lead + (h, n), dtype=torch.float32, device=device)
     u.normal_(0.0, 0.1, generator=gen)
     return {
-        "mu_x": full((d,), 0.5),
-        "mu": full((_N_MIX, d), 0.5),
-        "mix_A": dense_init(gen, (d, _N_MIX, lm), 1, dt, **kw),
-        "mix_B": dense_init(gen, (_N_MIX, lm, d), 2, dt, **kw),
-        "w0": w0,
-        "decay_A": dense_init(gen, (d, ld), 1, dt, **kw),
-        "decay_B": dense_init(gen, (ld, d), 1, dt, **kw),
-        "u": u.to(tdt),
-        "w_r": dense_init(gen, (d, d), 1, dt, **kw),
-        "w_k": dense_init(gen, (d, d), 1, dt, **kw),
-        "w_v": dense_init(gen, (d, d), 1, dt, **kw),
-        "w_g": dense_init(gen, (d, d), 1, dt, **kw),
-        "ln_w": full((d,), 1.0),
-        "ln_b": full((d,), 0.0),
-        "w_o": dense_init(gen, (d, d), 1, dt, **kw),
+        "mu_x": Param(full((d,), 0.5), (None,)),
+        "mu": Param(full((_N_MIX, d), 0.5), (None, None)),
+        "mix_A": Param(dense_init(gen, (d, _N_MIX, lm), 1, dt, **kw),
+                       ("embed_fsdp", None, "lora")),
+        "mix_B": Param(dense_init(gen, (_N_MIX, lm, d), 2, dt, **kw),
+                       (None, "lora", None)),
+        "w0": Param(w0, (None,)),
+        "decay_A": Param(dense_init(gen, (d, ld), 1, dt, **kw),
+                         ("embed_fsdp", "lora")),
+        "decay_B": Param(dense_init(gen, (ld, d), 1, dt, **kw),
+                         ("lora", None)),
+        "u": Param(u.to(tdt), ("rwkv_heads", None)),
+        "w_r": Param(dense_init(gen, (d, d), 1, dt, **kw),
+                     ("embed_fsdp", "mlp")),
+        "w_k": Param(dense_init(gen, (d, d), 1, dt, **kw),
+                     ("embed_fsdp", "mlp")),
+        "w_v": Param(dense_init(gen, (d, d), 1, dt, **kw),
+                     ("embed_fsdp", "mlp")),
+        "w_g": Param(dense_init(gen, (d, d), 1, dt, **kw),
+                     ("embed_fsdp", "mlp")),
+        "ln_w": Param(full((d,), 1.0), (None,)),
+        "ln_b": Param(full((d,), 0.0), (None,)),
+        "w_o": Param(dense_init(gen, (d, d), 1, dt, **kw),
+                     ("mlp", "embed_fsdp")),
     }
 
 
@@ -240,11 +254,14 @@ def init_rwkv_channel_mix(gen: torch.Generator | None, cfg: ModelConfig, *,
     kw = dict(stack=stack, device=device)
     half = torch.full(lead + (d,), 0.5, dtype=torch_dtype(dt), device=device)
     return {
-        "mu_k": half,
-        "mu_r": half.clone(),
-        "w_k": dense_init(gen, (d, ff), 1, dt, **kw),
-        "w_v": dense_init(gen, (ff, d), 1, dt, **kw),
-        "w_r": dense_init(gen, (d, d), 1, dt, **kw),
+        "mu_k": Param(half, (None,)),
+        "mu_r": Param(half.clone(), (None,)),
+        "w_k": Param(dense_init(gen, (d, ff), 1, dt, **kw),
+                     ("embed_fsdp", "mlp")),
+        "w_v": Param(dense_init(gen, (ff, d), 1, dt, **kw),
+                     ("mlp", "embed_fsdp")),
+        "w_r": Param(dense_init(gen, (d, d), 1, dt, **kw),
+                     ("embed_fsdp", "mlp")),
     }
 
 

@@ -27,12 +27,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import current_mesh_info, use_mesh_info
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.attention import ModelCtx
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
+                                       init_norm, split)
 from repro_torch.utils import Spec, tree_map
 
 LayerKind = tuple[str, bool]  # (block type, is_moe)
@@ -89,7 +91,7 @@ def _check_kind(kind: LayerKind) -> None:
 
 def init_layer(gen: torch.Generator | None, cfg: ModelConfig, kind: LayerKind,
                *, stack: int = 0, device: torch.device | str = "cuda") -> dict:
-    """The layer's weight tree, JAX's ``init_layer`` key for key: an MoE
+    """The layer's ``Param`` tree, JAX's ``init_layer`` key for key: an MoE
     layer holds ``moe`` (and ``shared`` with shared experts) where the
     others hold ``mlp``; an ``xattn`` layer holds ``norm_x`` and the
     cross-attention ``cross`` beside its self-attention ``core``."""
@@ -216,11 +218,16 @@ def apply_layer(p: dict, cfg: ModelConfig, kind: LayerKind, x: torch.Tensor,
 
 def init_segment(gen: torch.Generator | None, cfg: ModelConfig, seg: Segment,
                  *, device: torch.device | str = "cuda") -> dict:
-    """The segment's weight tree; scanned segments draw every leaf with a
-    leading ``layers`` axis of ``seg.repeats`` (``transformer.py:243-248``)."""
+    """(values, axes) of the segment's weight tree; scanned segments draw
+    every leaf with a leading ``layers`` axis of ``seg.repeats``, and its
+    logical axes gain a leading ``"layers"`` (``transformer.py:232-248``)."""
     stack = seg.repeats if seg.scanned else 0
-    return {f"sub{i}": init_layer(gen, cfg, kind, stack=stack, device=device)
-            for i, kind in enumerate(seg.kinds)}
+    vals, axes = split({f"sub{i}": init_layer(gen, cfg, kind, stack=stack,
+                                              device=device)
+                        for i, kind in enumerate(seg.kinds)})
+    if seg.scanned:
+        axes = tree_map(lambda a: ("layers",) + a, axes)
+    return vals, axes
 
 
 def segment_cache_specs(cfg: ModelConfig, seg: Segment, batch: int,
@@ -266,14 +273,22 @@ def _remat(policy: str, fn, x: torch.Tensor):
     ``repro/models/transformer.py:306-310``:
     ``"full"`` keeps nothing inside the layer and reruns it in the backward,
     ``"dots"`` keeps the outputs of the non-batched matrix products.  The
-    numbers are those of ``fn(x)``."""
+    numbers are those of ``fn(x)``.  The rerun happens on the autograd
+    engine's thread (a CUDA backward has its own), so it is given the mesh
+    the forward ran under: the same constraints and the same MoE path."""
+    info = current_mesh_info()
+
+    def run(x_):
+        with use_mesh_info(info):
+            return fn(x_)
+
     kw = {}
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
     elif policy != "full":
         raise ValueError(f"remat policy {policy!r}")
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
                       **kw)
 
 

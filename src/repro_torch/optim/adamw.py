@@ -9,6 +9,10 @@ bias corrections) are f32 tensors, as JAX computes them, not Python doubles.
 Weight decay goes to every parameter whose *stored* rank is >= 2, which
 includes a scanned segment's stacked vectors (norm scales ``(L, d)``,
 ``w0``), as in JAX; ``torch.optim.AdamW`` would decay every parameter.
+
+Under a mesh the parameters, gradients and moments are DTensors with one
+layout per leaf: the moments take their parameter's placements, the global
+gradient norm reduces over every shard, and the scalars are replicated.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.sharding import replicate_like
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -58,8 +63,9 @@ class AdamW:
         self.cfg = cfg
 
     def init(self, params: Any) -> dict:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        """Zero moments laid out as their parameters (DTensors under a
+        mesh), and the step count."""
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         device = tree_leaves(params)[0].device
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
@@ -81,8 +87,9 @@ class AdamW:
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         b1, b2 = cfg.b1, cfg.b2
         t = step.to(torch.float32)
-        bc1 = 1 - b1 ** t
-        bc2 = 1 - b2 ** t
+        ref = tree_leaves(params)[0]
+        lr_, bc1, bc2 = (replicate_like(x, ref)
+                         for x in (lr, 1 - b1 ** t, 1 - b2 ** t))
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]), tree_leaves(state["v"])):
             g = g.float().mul_(clip)
@@ -93,7 +100,7 @@ class AdamW:
             u.div_((v / bc2).sqrt_().add_(cfg.eps))
             if p.ndim >= 2:  # decoupled weight decay on stored rank >= 2
                 u.add_(p.float(), alpha=cfg.weight_decay)
-            p.sub_(u.mul_(lr))
+            p.sub_(u.mul_(lr_))
         stats = {"lr": lr, "grad_norm": gnorm,
                  "param_norm": global_norm(params)}
         return params, {"m": state["m"], "v": state["v"], "step": step}, stats
