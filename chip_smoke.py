@@ -160,6 +160,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -359,6 +360,27 @@ ORCH_T33 = ({"tokens_per_page": 33}, {"tokens_per_page": 33, "vocab": 16})
 DIST_ARCH, DIST_PARITY_LAYERS = "granite-moe-1b-a400m", 4
 DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 2048, 10
 DIST_PARITY_RTOL, DIST_GRAD_TOL = 2e-4, 1e-3
+# rwkv6-1.6b on the same mesh (ROADMAP §3, fault 4): full width, bf16,
+# remat full, B x S = TRAIN_BATCH x TRAIN_SEQ, DIST_RWKV_STEPS steps on
+# the mesh and as many without one from the same weights and batches; the
+# first step's loss on the mesh against the one without, relative
+DIST_RWKV, DIST_RWKV_STEPS, DIST_RWKV_RTOL = "rwkv6-1.6b", 5, 1e-3
+
+# the paper-claims phase (phase_paper_claims): the seeds and limits of
+# tests/test_paper_claims.py.  The card's numbers must equal the CPU's but
+# for the simulated makespan share, whose runs differ in the last digits
+# from one run to the next (in the reference too: tests/
+# test_torch_launch_tools.py), held to CLAIMS_MAKESPAN_RTOL
+CLAIM_SEEDS, FIG3_SEEDS, FIG4_SEEDS, FIG6_SEEDS = 16, 14, 30, 5
+CLAIMS_MAKESPAN_RTOL = 1e-6
+
+# the dry-run phase (phase_dryrun): gemma-2b at full width as
+# phase_train_full trains it, priced on the `local` platform's one-card
+# mesh; the analytic FLOPs against a counted step within the band of
+# tests/test_flops_model.py:45; then one cell of the 32x8 H100 mesh, on a
+# fake process group in a child process on the host
+DRY_ARCH, DRY_STEPS, DRY_BAND = "gemma-2b", 5, (0.4, 2.5)
+DRY_CELL = ("gemma-2b", "train_4k", "32x8")
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -2188,6 +2210,76 @@ def _dist_collectives(info) -> None:
     torch.cuda.empty_cache()
 
 
+def _dist_rwkv(card: str, info) -> None:
+    """rwkv6-1.6b at full width: DIST_RWKV_STEPS steps of ``train`` on the
+    mesh and as many without one (the same seed-0 weights and batches),
+    then one more step of each under ``torch.profiler``.  The first step's
+    loss on the mesh must be within DIST_RWKV_RTOL of the one without.
+    Later steps are reported, not gated: at this width and lr the chunked
+    WKV form's gradient turns NaN by step 3 with or without the mesh (its
+    masked ``exp`` gives 0 x inf in the backward, as JAX's form would)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.distributed.sharding import use_mesh_info
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, OptConfig
+
+    cfg = get_config(DIST_RWKV)
+    runs = {}
+    for tag, mesh in (("mesh (1, 1)", info), ("no mesh", None)):
+        torch.cuda.reset_peak_memory_stats()
+        out = train(arch=DIST_RWKV, smoke=False, steps=DIST_RWKV_STEPS,
+                    global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    peak_lr=TRAIN_LR, ckpt_dir=None, log_every=1,
+                    mesh_info=mesh, device="cuda")
+        torch.cuda.synchronize()
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        wall = float(np.median([b["wall_s"] - a["wall_s"]
+                                for a, b in zip(hist, hist[1:])]))
+        peak = torch.cuda.max_memory_allocated()
+        model = LanguageModel(cfg, device="cuda")
+        params = out.pop("params")
+        del out
+        opt = AdamW(OptConfig(peak_lr=TRAIN_LR))
+        with use_mesh_info(mesh):
+            state, step = opt.init(params), make_train_step(model, opt)
+            batch = {k: torch.from_numpy(v).cuda() for k, v in TokenDataset(
+                cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch(
+                    DIST_RWKV_STEPS).items()}
+            if mesh:
+                batch = {k: mesh.distribute(v, ("batch", "seq_act"))
+                         for k, v in batch.items()}
+            torch.cuda.synchronize()
+            (params, state, _), prof_wall, events, by_name = _profiled(
+                lambda: step(params, state, batch))
+        busy = sum(by_name.values()) / 1e3 / prof_wall if events else None
+        runs[tag] = losses
+        log(f"[dist-rwkv] {cfg.name} full width, {tag}, bf16, remat "
+            f"{cfg.remat}, B {TRAIN_BATCH} x S {TRAIN_SEQ}: losses {losses}; "
+            f"step wall (median of steps 2-{DIST_RWKV_STEPS}) "
+            f"{wall * 1e3:.2f} ms; tokens/s "
+            f"{TRAIN_BATCH * TRAIN_SEQ / wall:.1f}; peak allocated "
+            f"{peak / 2**30:.2f} GiB; one profiled step {prof_wall * 1e3:.2f}"
+            f" ms, {len(events)} device events, busy "
+            f"{'not measured' if busy is None else f'{busy:.4f}'} ({card})")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:3]:
+            log(f"[dist-rwkv] {ms:.3f} ms {name[:110]}")
+        del params, state, batch, model
+        torch.cuda.empty_cache()
+    on, off = runs["mesh (1, 1)"], runs["no mesh"]
+    rel = abs(on[0] - off[0]) / abs(off[0])
+    log(f"[dist-rwkv] first step's loss on the mesh {on[0]!r} against "
+        f"{off[0]!r} without: rel {rel:.3e} (rtol {DIST_RWKV_RTOL}); later "
+        f"losses finite on the mesh / without: {bool(np.isfinite(on).all())}"
+        f" / {bool(np.isfinite(off).all())}")
+    if not (np.isfinite(on[0]) and np.isfinite(off[0])
+            and rel <= DIST_RWKV_RTOL):
+        raise AssertionError("[dist-rwkv] the mesh step parts from the "
+                             "no-mesh step")
+
+
 def phase_distributed(card: str) -> None:
     """Training under a mesh: a (data 1, model 1) DeviceMesh over an NCCL
     group of one rank (a FileStore rendezvous in a temporary directory; no
@@ -2222,6 +2314,7 @@ def phase_distributed(card: str) -> None:
                 f"{off['busy']} ({card})")
             _dist_experts(card)
             _dist_collectives(info)
+            _dist_rwkv(card, info)
         finally:
             dist.destroy_process_group()
     torch.cuda.synchronize()
@@ -2229,6 +2322,222 @@ def phase_distributed(card: str) -> None:
     log(f"[dist] phase {time.perf_counter() - t0:.3f} s; launches {launches}")
     if launches != {"flash": 0, "wkv": 0}:
         raise AssertionError(f"[dist] the mesh path launched {launches}")
+
+
+def _claims(device: str) -> dict:
+    """The paper's numbers from the port's benchmarks, with the crawl
+    assets' tensor work on ``device``."""
+    from benchmarks import torch_fig3_reliability as fig3
+    from benchmarks import torch_fig4_effort as fig4
+    from benchmarks import torch_fig6_durations as fig6
+    from benchmarks import torch_table1_cost as table1
+
+    return {"claims": table1.headline_claims(n_seeds=CLAIM_SEEDS,
+                                             device=device),
+            "table": table1.per_cell_table(device=device),
+            "fig3": fig3.run(n_seeds=FIG3_SEEDS, device=device),
+            "fig4": fig4.run(n_seeds=FIG4_SEEDS, device=device),
+            "fig6": fig6.run(n_seeds=FIG6_SEEDS, device=device)}
+
+
+def phase_paper_claims(card: str) -> None:
+    """The source paper's claims on the port (``benchmarks/torch_*``): Table
+    1's cells and headline claims and Figs. 3, 4 and 6 with the crawl
+    assets on the card, equal to the same calls on the CPU, and within the
+    limits of tests/test_paper_claims.py.  Neither kernel launches."""
+    from benchmarks.torch_table1_cost import TABLE1
+    from repro_torch.data import commoncrawl as cc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+
+    fa.launches = ls.launches = 0
+    cc.device_calls.clear()
+    t0 = time.perf_counter()
+    card_out = _claims("cuda")
+    t_card = time.perf_counter() - t0
+    calls = dict(cc.device_calls)
+    cpu_out = _claims("cpu")
+    t_all = time.perf_counter() - t0
+    claims = card_out["claims"]
+    log(f"[claims] headline_claims(n_seeds={CLAIM_SEEDS}) on the card: "
+        f"{json.dumps(claims)}")
+    log(f"[claims] fig3 {json.dumps(card_out['fig3'])}")
+    log(f"[claims] fig4 trial ratio "
+        f"{card_out['fig4']['trial_ratio_spot_over_premium']!r}; fig6 edges "
+        f"{card_out['fig6']['edges@pod-spot']} spot, "
+        f"{card_out['fig6']['edges@pod-premium']} premium")
+    log(f"[claims] the crawl assets' tensor calls by device {calls}; the "
+        f"card's calls {t_card:.3f} s, the phase {t_all:.3f} s ({card})")
+    timed = "makespan_improvement_vs_spot_simulated"
+    rel = abs(claims[timed] - cpu_out["claims"][timed]) / \
+        abs(cpu_out["claims"][timed])
+    same = {k: v for k, v in card_out.items() if k != "claims"} == \
+        {k: v for k, v in cpu_out.items() if k != "claims"} and \
+        {k: v for k, v in claims.items() if k != timed} == \
+        {k: v for k, v in cpu_out["claims"].items() if k != timed}
+    log(f"[claims] card equal to CPU: {same}; {timed} rel {rel:.3e} "
+        f"(rtol {CLAIMS_MAKESPAN_RTOL})")
+    if not same or rel > CLAIMS_MAKESPAN_RTOL:
+        raise AssertionError("[claims] the card's numbers part from the CPU's")
+    if not any(dev == "cuda" for _, dev in calls) or any(
+            dev != "cuda" for _, dev in calls):
+        raise AssertionError(f"[claims] crawl tensors on {calls}")
+    edges = [(r, ref) for ref in TABLE1 if ref[0] == "edges"
+             for r in card_out["table"]
+             if (r["asset"], r["platform"]) == ref[:2]]
+    fig3, fig4, fig6 = card_out["fig3"], card_out["fig4"], card_out["fig6"]
+    limits = {
+        "cost cut vs DBR >= 40 % (table basis)":
+            claims["cost_reduction_vs_premium_table_basis"] >= 0.40,
+        "cost cut >= 32 % (simulated)":
+            claims["cost_reduction_vs_premium_simulated"] >= 0.32,
+        "savings >= 300 a run": claims["savings_usd_per_run"] >= 300.0,
+        "tuning gain 12 % +- 1": abs(
+            claims["tuning_improvement_vs_untuned_spot"] - 0.12) < 0.01,
+        "Table 1 edges rows within 10 %": len(edges) == 2 and all(
+            abs(r["duration_h"] - ref[2]) / ref[2] < 0.10
+            and abs(r["total_usd"] - ref[3]) / ref[3] < 0.10
+            for r, ref in edges),
+        "Fig 3 spot fails more, > 1.08x the trials":
+            fig3["failure_rate"]["pod-spot"] > fig3["failure_rate"][
+                "pod-premium"] and fig3["trial_ratio_spot_over_premium"] > 1.08,
+        "Fig 4 trial ratio in (1.5, 3), changes > 2x":
+            1.5 < fig4["trial_ratio_spot_over_premium"] < 3.0
+            and fig4["pod-spot"]["mean_changes"]
+            > 2.0 * fig4["pod-premium"]["mean_changes"],
+        "Fig 6 premium edges > 1.25x faster":
+            fig6["edges@pod-spot"]["median_h"]
+            > 1.25 * fig6["edges@pod-premium"]["median_h"],
+    }
+    log(f"[claims] the paper's limits: {limits}")
+    if not all(limits.values()):
+        raise AssertionError("[claims] a claim misses its limit")
+    if (fa.launches, ls.launches) != (0, 0):
+        raise AssertionError(f"[claims] launched {fa.launches} flash, "
+                             f"{ls.launches} WKV")
+
+
+def _dry_cell(arch: str, shape_name: str, mesh: str, timeout: float,
+              **kw: str) -> dict:
+    """``dryrun.run_cell`` in a child process on the host (its fake process
+    group is global to a process); ``kw`` are Python sources of
+    ``run_cell``'s keyword arguments."""
+    extra = "".join(f", {k}={v}" for k, v in kw.items())
+    code = ("import json\n"
+            "from repro_torch.configs.base import ShapeSpec\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            f"print(json.dumps(run_cell({arch!r}, {shape_name!r}, {mesh!r}"
+            f"{extra})))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=timeout, env=env, cwd=ROOT)
+    if r.returncode != 0:
+        raise AssertionError(f"[dryrun] run_cell failed: {r.stderr[-2000:]}")
+    cell = json.loads(r.stdout.strip().splitlines()[-1])
+    if cell["status"] != "ok":
+        raise AssertionError(f"[dryrun] {cell.get('traceback', cell)}")
+    return cell
+
+
+def phase_dryrun(card: str) -> None:
+    """The dry run's predictions for one card against that card: gemma-2b
+    at full width (bf16, remat full, B TRAIN_BATCH x S TRAIN_SEQ, seed 0),
+    priced by ``run_cell`` on the ``local`` platform's mesh (1,); (a)
+    ``FlopCounterMode`` over one real step against ``flops.step_flops``,
+    within DRY_BAND; (b) the predicted argument bytes against the bytes of
+    the parameters, AdamW state and batch the card holds, equal; (c) the
+    roofline's step time beside the measured step wall (printed); (d) one
+    cell of the 32x8 H100 mesh on a fake process group, in a child."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.launch import flops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import AdamW, OptConfig
+    from repro_torch.utils import tree_leaves
+
+    fa.launches = ls.launches = 0
+    t0 = time.perf_counter()
+    cfg = get_config(DRY_ARCH)
+    shape = ShapeSpec("card", "train", TRAIN_SEQ, TRAIN_BATCH)
+    local = _dry_cell(DRY_ARCH, "card", "local", 600,
+                      shape=f"ShapeSpec('card', 'train', {TRAIN_SEQ}, "
+                            f"{TRAIN_BATCH})",
+                      layout="((1,), ('data',))")
+    predicted = int(local["memory_analysis"]["argument_size_in_bytes"])
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = LanguageModel(cfg, device="cuda")
+    params = model.init(0)
+    opt = AdamW(OptConfig(peak_lr=TRAIN_LR))
+    state = opt.init(params)
+    data = TokenDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    tensors = tree_leaves(params) + tree_leaves(state) + list(batch.values())
+    held = sum(t.untyped_storage().nbytes() for t in tensors)
+    log(f"[dryrun] (b) {cfg.name} full width: predicted argument bytes "
+        f"{predicted} ({predicted / 1e9:.4f} GB); the card holds {held} in "
+        f"{len(tensors)} tensors (allocator: {allocated}, rounded up per "
+        f"block)")
+    if held != predicted:
+        raise AssertionError("[dryrun] predicted argument bytes part from "
+                             "the card's")
+
+    step = make_train_step(model, opt)
+    with FlopCounterMode(display=False) as counter:
+        params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    counted = counter.get_total_flops()
+    analytic = flops.step_flops(cfg, shape)
+    ratio = counted / analytic
+    log(f"[dryrun] (a) one step's FLOPs counted by FlopCounterMode "
+        f"{counted:.6e} against flops.step_flops {analytic:.6e}: ratio "
+        f"{ratio:.4f} (band {DRY_BAND})")
+    if not DRY_BAND[0] < ratio < DRY_BAND[1]:
+        raise AssertionError("[dryrun] analytic FLOPs outside the band")
+
+    walls = []
+    for i in range(1, DRY_STEPS + 1):
+        b = {k: torch.from_numpy(v).cuda() for k, v in data.batch(i).items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, b)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t)
+    wall = float(np.median(walls[1:]))
+    roof = local["roofline"]
+    log(f"[dryrun] (c) roofline on one card: compute {roof['t_compute_s']:.6f}"
+        f" s, memory {roof['t_memory_s']:.6f} s, collective "
+        f"{roof['t_collective_s']:.6f} s -> step {roof['step_time_s']:.6f} s "
+        f"({roof['bottleneck']}); measured step wall (median of steps 2-"
+        f"{DRY_STEPS}) {wall:.6f} s: {wall / roof['step_time_s']:.3f}x the "
+        f"roofline ({card})")
+    del params, state, batch, b, model, step
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    cell = _dry_cell(*DRY_CELL, timeout=900)
+    roof = cell["roofline"]
+    log(f"[dryrun] (d) {' x '.join(DRY_CELL)} on a fake group of "
+        f"{cell['n_chips']} ranks, torch {torch.__version__}: fake step "
+        f"{cell['compile_s']} s, the child {time.perf_counter() - t:.1f} s; "
+        f"argument bytes a rank {cell['memory_analysis']['argument_size_in_bytes']:.0f}"
+        f" (fits 80 GB: {cell['fits_hbm']}); roofline {json.dumps(roof)}; "
+        f"collective bytes a rank {json.dumps(cell['collective_bytes'])}; "
+        f"ops {json.dumps(cell['collective_ops'])}")
+    log(f"[dryrun] phase {time.perf_counter() - t0:.3f} s; launches "
+        f"{fa.launches} flash, {ls.launches} WKV")
+    if (fa.launches, ls.launches) != (0, 0):
+        raise AssertionError("[dryrun] the dry-run path launched a kernel")
 
 
 def main() -> None:
@@ -2304,6 +2613,8 @@ def main() -> None:
         wkv_launches[f"train {arch}"] = train_launches["wkv"]
     phase_orchestrator(card)
     phase_distributed(card)
+    phase_paper_claims(card)
+    phase_dryrun(card)
 
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,

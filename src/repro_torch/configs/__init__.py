@@ -1,5 +1,8 @@
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
+    ShapeSpec,
+    applicable_shapes,
     get_config,
     list_configs,
     register,

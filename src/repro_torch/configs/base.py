@@ -3,7 +3,8 @@
 
 Every architecture is a frozen ``ModelConfig``; arch modules register a
 factory under their public name and expose ``smoke()``, a narrow two-layer
-twin of the same shape family used by the CPU tests.
+twin of the same shape family used by the CPU tests.  ``SHAPES`` are the
+assigned input shapes the dry run prices (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -88,6 +89,11 @@ class ModelConfig:
         return tuple(pat[i % len(pat)] for i in range(self.n_layers))
 
     @property
+    def is_subquadratic(self) -> bool:
+        """True when no layer needs an unbounded full-attention KV cache."""
+        return all(t in ("swa", "rglru", "rwkv6") for t in self.layer_types())
+
+    @property
     def q_dim(self) -> int:
         if self.use_mla:
             return self.n_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
@@ -148,6 +154,37 @@ class ModelConfig:
             return n
         hd = self.head_dim
         return d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeSpec]:
+    """Assignment rules: long_500k only for sub-quadratic archs."""
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not cfg.is_subquadratic:
+            continue  # documented skip: full-attention arch
+        out.append(s)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -70,7 +70,9 @@ def quantized_sum(x32: torch.Tensor, group: Any
     scale = amax[0] / 127.0
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int32)
-    total = q.clone()
+    # the reduction's buffer must be dense: a gradient from a product on
+    # local shards may be a transposed view, whose layout clone() keeps
+    total = q.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
     return q, total, scale
 

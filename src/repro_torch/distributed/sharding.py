@@ -17,11 +17,18 @@ inside the model from nothing (an ``arange`` of positions, a table of
 frequencies) is made a replicated DTensor with ``replicate``, and
 ``constrain`` raises for a plain tensor, so a tensor that escaped the mesh
 shows up instead of passing silently.
+
+The model's products go through ``einsum`` and ``matmul``: without a
+DTensor operand they are ``torch.einsum`` and ``@``; under a mesh they run
+on each rank's local shards, so DTensor never has to fold a split dim.
+Norms go through ``rowwise`` the same way.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
 import threading
 from typing import Any, Mapping, Sequence
 
@@ -256,6 +263,115 @@ def shard_map(fn, in_specs: tuple, out_specs):
     return local_map(fn, out_placements=tuple(out_pl) if many else out_pl[0],
                      in_placements=in_pl, in_grad_placements=grad_pl,
                      device_mesh=info.mesh, redistribute_inputs=True)
+
+
+def _product_placements(ins: list[str], out: str, ops: list, mesh) -> tuple:
+    """Per mesh dim, the output letter each operand is split on for a local
+    product, or none: (in placements per operand, out placements).
+
+    A candidate is an output letter that some operand is already split on
+    along that mesh dim (and that the cumulative split still divides); the
+    one kept is the cheapest to reach: an operand split on another letter
+    is gathered (its whole size) or, when it holds the letter, swapped
+    all-to-all (its size over the split).  Ties keep the first operand's.
+    A contracted letter is never kept, so no output is a partial sum."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = {c: n for spec, o in zip(ins, ops) for c, n in zip(spec, o.shape)}
+    numel = [math.prod(o.shape) for o in ops]
+    split = dict.fromkeys(sizes, 1)
+    chosen: list[str | None] = []
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        have = [spec[p.dim] if isinstance(p, Shard) else None
+                for spec, p in ((s, o.placements[i]) for s, o in zip(ins, ops))]
+        cands = [c for c in dict.fromkeys(have) if c is not None and c in out
+                 and n > 1 and sizes[c] % (split[c] * n) == 0]
+
+        def cost(c):
+            return sum(0 if h in (None, c) else
+                       (numel[k] / n if c in ins[k] else numel[k])
+                       for k, h in enumerate(have))
+
+        pick = min(cands, key=cost) if cands else None
+        if pick is not None:
+            split[pick] *= n
+        chosen.append(pick)
+    in_pl = [[Shard(spec.index(c)) if c is not None and c in spec
+              else Replicate() for c in chosen] for spec in ins]
+    out_pl = [Shard(out.index(c)) if c is not None else Replicate()
+              for c in chosen]
+    return in_pl, out_pl
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(equation, *operands)``; when an operand is a DTensor,
+    the same product on each rank's local shards.
+
+    DTensor's own einsum and ``@`` fold the batch dims of an operand into
+    one (``view``), and torch 2.11's DTensor cannot flatten a split dim
+    that is not the first of the fold (a (batch, seq) split over (data,
+    model)).  Here no DTensor is viewed: each mesh dim keeps one output
+    letter split (``_product_placements``), the operands are laid out to
+    match (a gather, an all-to-all, or a local slice of a replicated
+    operand), and the einsum runs on plain local tensors inside
+    ``local_map``.  A plain operand among DTensors is taken as replicated.
+    The local gradient of an operand replicated over a mesh dim the output
+    is split on is a partial sum there, and is declared ``Partial``."""
+    if not any(is_dtensor(o) for o in operands):
+        return torch.einsum(equation, *operands)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    ref = next(o for o in operands if is_dtensor(o))
+    ops = [replicate_like(o, ref) for o in operands]
+    lhs, out = equation.replace(" ", "").split("->")
+    ins = lhs.split(",")
+    mesh = ref.device_mesh
+    in_pl, out_pl = _product_placements(ins, out, ops, mesh)
+    grad_pl = [[Partial() if isinstance(p, Replicate)
+                and not isinstance(out_pl[i], Replicate) else p
+                for i, p in enumerate(pl)] for pl in in_pl]
+    return local_map(functools.partial(torch.einsum, equation),
+                     out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*ops)
+
+
+_LETTERS = "abcdefghijklmnopqrstuvwxyz"
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for an (..., k) activation and a (k, n) weight; through
+    ``einsum``'s local product when either is a DTensor."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    lead = _LETTERS[:x.ndim - 1]
+    return einsum(f"{lead}y,yz->{lead}z", x, w)
+
+
+def rowwise(fn, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *params)`` for an ``fn`` that maps each row of ``x``'s last
+    dim on its own (a norm); when ``x`` is a DTensor, on each rank's local
+    rows: ``x`` with its last dim whole, ``params`` replicated, the result
+    laid out as ``x``.  A parameter's local gradient is a partial sum over
+    every mesh dim that splits the rows."""
+    if not is_dtensor(x):
+        return fn(x, *params)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    last = x.ndim - 1
+    pl = [p if isinstance(p, Shard) and p.dim % x.ndim != last
+          else Replicate() for p in x.placements]
+    rep = [Replicate()] * len(pl)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    ps = [replicate_like(q, x) for q in params]
+    return local_map(fn, out_placements=pl,
+                     in_placements=(pl,) + (rep,) * len(ps),
+                     in_grad_placements=(pl,) + (grad,) * len(ps),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(
+        x, *ps)
 
 
 def replicate_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, current_mesh_info,
-                                              shard_map)
+                                              einsum, shard_map)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (Param, apply_rope, dense_init,
                                        torch_dtype)
@@ -150,12 +150,12 @@ def attention_core(
     # decode (Sq == 1): grouped product against the cache -- no repeat, so
     # cache reads stay 1/G of the expanded cost
     qg = q.reshape(B, Sq, Hkv, G, Dk)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    s = einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     mask = _mask(pos_q[:, None, None, :, None], pos_k[:, None, None, None, :],
                  causal, window)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    o = einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return o.reshape(B, Sq, Hq, Dv)
 
 
@@ -166,12 +166,12 @@ def _attention_expanded(q, k, v, pos_q, pos_k, *, causal, window, scale):
     kf = k.float()
 
     def block(q_blk, pq, k_, v_, pk):
-        s = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), k_) * scale
+        s = einsum("bqhd,bkhd->bhqk", q_blk.float(), k_) * scale
         mask = _mask(pq[:, None, :, None], pk[:, None, None, :], causal,
                      window)
         s = torch.where(mask, s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", p.to(v_.dtype), v_)
+        return einsum("bhqk,bkhd->bqhd", p.to(v_.dtype), v_)
 
     chunk = _pick_chunk(Sq)
     if Sq == chunk:
@@ -413,15 +413,15 @@ def apply_attention(
     # q/k/v projections and attention run TP-local (``attention.py:395-399``)
     if heads_tp and S > 1:
         x = constrain(x, "batch", None, None)
-    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(cdt))
+    q = einsum("bsd,dhk->bshk", x, p["w_q"].to(cdt))
     q = constrain(q, "batch", None if heads_tp else "seq_act",
                   "heads" if heads_tp else None, None)
     if cross:
         o, new_cache = _cross(p, cdt, q, ctx, cache)
         return _out(p, cdt, o, heads_tp), new_cache
     pos_q = ctx.pos2d
-    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(cdt))
+    k = einsum("bsd,dhk->bshk", x, p["w_k"].to(cdt))
+    v = einsum("bsd,dhk->bshk", x, p["w_v"].to(cdt))
     if cfg.pos_type in ("rope", "mrope"):
         q = apply_rope(q, ctx.positions, cfg)
         k = apply_rope(k, ctx.positions, cfg)
@@ -471,7 +471,7 @@ def _out(p: dict, cdt: torch.dtype, o: torch.Tensor,
     """The output projection, heads-sharded in and sequence-sharded out."""
     o = constrain(o, "batch", None if heads_tp else "seq_act",
                   "heads" if heads_tp else None, None)
-    out = torch.einsum("bshk,hkd->bsd", o, p["w_o"].to(cdt))
+    out = einsum("bshk,hkd->bsd", o, p["w_o"].to(cdt))
     return constrain(out, "batch", "seq_act", None)
 
 
@@ -489,8 +489,8 @@ def _cross(p: dict, cdt: torch.dtype, q: torch.Tensor, ctx: ModelCtx,
         new_cache = cache
     else:
         src = ctx.enc_out
-        k = torch.einsum("bsd,dhk->bshk", src, p["w_k"].to(cdt))
-        v = torch.einsum("bsd,dhk->bshk", src, p["w_v"].to(cdt))
+        k = einsum("bsd,dhk->bshk", src, p["w_k"].to(cdt))
+        v = einsum("bsd,dhk->bshk", src, p["w_v"].to(cdt))
         pos_k = ctx.enc_positions
         new_cache = None
         if cache is not None:  # prefill: persist cross K/V

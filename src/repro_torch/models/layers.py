@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import replicate
+from repro_torch.distributed.sharding import matmul, replicate, rowwise
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -92,17 +92,27 @@ def init_norm(cfg: ModelConfig, d: int, *, stack: int = 0,
 
 
 def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm or RMSNorm over the last dim, in f32, back in x's dtype.
+    Under a mesh each rank normalizes its own rows (``rowwise``): torch
+    2.11's DTensor fails in the backward of ``var``."""
+    params = ((p["scale"], p["bias"]) if cfg.norm_type == "layernorm"
+              else (p["scale"],))
+    return rowwise(functools.partial(_norm, cfg), x, *params)
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor,
+          bias: torch.Tensor | None = None) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     if cfg.norm_type == "layernorm":
         mean = x.mean(-1, keepdim=True)
         var = x.var(-1, keepdim=True, unbiased=False)
         x_hat = (x - mean) * torch.rsqrt(var + cfg.norm_eps)
-        out = x_hat * p["scale"].float() + p["bias"].float()
+        out = x_hat * scale.float() + bias.float()
     else:  # rmsnorm
         ms = x.square().mean(-1, keepdim=True)
         x_hat = x * torch.rsqrt(ms + cfg.norm_eps)
-        scale = p["scale"].float()
+        scale = scale.float()
         if cfg.gemma_norm:
             scale = 1.0 + scale
         out = x_hat * scale
@@ -201,10 +211,10 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cdt = torch_dtype(cfg.compute_dtype)
-    h = x @ p["w_up"].to(cdt)
+    h = matmul(x, p["w_up"].to(cdt))
     if cfg.mlp_type == "glu":
-        g = x @ p["w_gate"].to(cdt)
+        g = matmul(x, p["w_gate"].to(cdt))
         h = _act(cfg, g) * h
     else:
         h = _act(cfg, h)
-    return h @ p["w_down"].to(cdt)
+    return matmul(h, p["w_down"].to(cdt))

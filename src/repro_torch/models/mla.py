@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, einsum, matmul
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import (NEG_INF, ModelCtx, append_cache,
                                           attention_core, kv_heads_shardable,
@@ -87,14 +87,14 @@ def _queries(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx):
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     gather = kv_heads_shardable(cfg.n_heads) and x.shape[1] > 1
     if cfg.q_lora_rank:
-        cq = _rms(p["q_norm"]["scale"], cfg, x @ p["w_dq"].to(cdt))
+        cq = _rms(p["q_norm"]["scale"], cfg, matmul(x, p["w_dq"].to(cdt)))
         if gather:
             cq = constrain(cq, "batch", None, None)  # SP->TP on the latent
-        q = torch.einsum("bsl,lhk->bshk", cq, p["w_uq"].to(cdt))
+        q = einsum("bsl,lhk->bshk", cq, p["w_uq"].to(cdt))
     else:
         if gather:
             x = constrain(x, "batch", None, None)
-        q = torch.einsum("bsd,dhk->bshk", x, p["w_uq"].to(cdt))
+        q = einsum("bsd,dhk->bshk", x, p["w_uq"].to(cdt))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     return q_nope, apply_rope(q_rope, ctx.positions, cfg, rot_dim=rope)
 
@@ -103,8 +103,8 @@ def _latents(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx):
     """Compressed per-token cache content: normed c_kv and the roped shared
     k_rope, (B, S, kv_lora) and (B, S, rope)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    ckv = _rms(p["kv_norm"]["scale"], cfg, x @ p["w_dkv"].to(cdt))
-    kr = (x @ p["w_kr"].to(cdt))[:, :, None, :]
+    ckv = _rms(p["kv_norm"]["scale"], cfg, matmul(x, p["w_dkv"].to(cdt)))
+    kr = matmul(x, p["w_kr"].to(cdt))[:, :, None, :]
     kr = apply_rope(kr, ctx.positions, cfg, rot_dim=cfg.qk_rope_head_dim)[:, :, 0]
     return ckv, kr
 
@@ -141,15 +141,15 @@ def _absorbed(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     then W_uv.  q: (B, Q, H, .); ckv, kr: (B, S, .); pos_q (B, Q), pos_k
     (B, S) -> (B, Q, H, v_head_dim)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, p["w_uk"].to(cdt))
-    s = torch.einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
-    s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
+    q_lat = einsum("bqhn,lhn->bqhl", q_nope, p["w_uk"].to(cdt))
+    s = einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
+    s = s + einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
     s = s * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     mask = (pos_k[:, None, :] >= 0) & (pos_k[:, None, :] <= pos_q[:, :, None])
     s = torch.where(mask[:, None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhqs,bsl->bqhl", w.to(cdt), ckv)
-    return torch.einsum("bqhl,lhv->bqhv", o_lat, p["w_uv"].to(cdt))
+    o_lat = einsum("bhqs,bsl->bqhl", w.to(cdt), ckv)
+    return einsum("bqhl,lhv->bqhv", o_lat, p["w_uv"].to(cdt))
 
 
 def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
@@ -187,9 +187,9 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
         if heads_tp and S > 1:
             ckv = constrain(ckv, "batch", None, None)
             kr = constrain(kr, "batch", None, None)
-        k_nope = constrain(torch.einsum("bsl,lhn->bshn", ckv, p["w_uk"].to(cdt)),
+        k_nope = constrain(einsum("bsl,lhn->bshn", ckv, p["w_uk"].to(cdt)),
                            *ax)
-        v = constrain(torch.einsum("bsl,lhv->bshv", ckv, p["w_uv"].to(cdt)), *ax)
+        v = constrain(einsum("bsl,lhv->bshv", ckv, p["w_uv"].to(cdt)), *ax)
         kr_b = constrain(kr[:, :, None, :].expand(B, S, h, rope), *ax)
         k = constrain(torch.cat([k_nope, kr_b], dim=-1), *ax)
         q = constrain(torch.cat([q_nope, q_rope], dim=-1), *ax)
@@ -201,5 +201,5 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
             o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal)
     o = constrain(o, "batch", None if heads_tp else "seq_act",
                   "heads" if heads_tp else None, None)
-    out = torch.einsum("bshv,hvd->bsd", o, p["w_o"].to(cdt))
+    out = einsum("bshv,hvd->bsd", o, p["w_o"].to(cdt))
     return constrain(out, "batch", "seq_act", None), cache

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, replicate
+from repro_torch.distributed.sharding import constrain, matmul, replicate
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import ModelCtx
 from repro_torch.models.layers import (Param, apply_norm, embed_init,
@@ -179,7 +179,7 @@ class LanguageModel:
         cfg = self.cfg
         x = apply_norm(params["final_norm"], cfg, x)
         w = params["embed"].T if cfg.tie_embeddings else params["out"]
-        logits = (x @ w.to(torch_dtype(cfg.compute_dtype))).float()
+        logits = matmul(x, w.to(torch_dtype(cfg.compute_dtype))).float()
         return constrain(logits, "batch", "seq_act", "vocab")
 
     def _positions(self, batch_size: int, seq: int,
@@ -197,10 +197,15 @@ class LanguageModel:
     def _add_positions(self, params: dict, x: torch.Tensor,
                        pos: torch.Tensor) -> torch.Tensor:
         """The learned position table's rows (whisper's decoder), added in
-        x's dtype; other position types act inside attention."""
+        x's dtype; other position types act inside attention.  A lookup, as
+        the token table's (torch 2.11's DTensor mis-shapes the backward of
+        indexing with sequence-split positions); an inactive slot's -1 reads
+        the last row, as indexing does."""
         if self.cfg.pos_type != "learned":
             return x
-        return x + params["pos_embed"][pos.long()].to(x.dtype)
+        table = params["pos_embed"]
+        rows = F.embedding(pos.long() % table.shape[0], table)
+        return x + rows.to(x.dtype)
 
     def _frames(self, batch: dict) -> torch.Tensor:
         if "frames" not in batch:  # the reference fails with a KeyError

@@ -39,7 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (all_gather_tiled,
                                                  all_to_all_tiled, pmean)
 from repro_torch.distributed.sharding import (constrain, current_mesh_info,
-                                              shard_map, shard_map_specs)
+                                              einsum, matmul, shard_map,
+                                              shard_map_specs)
 from repro_torch.models.layers import Param, _act, dense_init, torch_dtype
 
 _SMALL_T = 4096  # global token threshold below which the dense path wins
@@ -69,7 +70,7 @@ def _route(router_w: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig):
     """(gates (T, K) f32, expert indices (T, K), aux loss) for x2d (T, d).
     ``torch.topk`` and ``lax.top_k`` may order equal probabilities
     differently; with seeded random weights no two are equal."""
-    logits = x2d.float() @ router_w.float()
+    logits = matmul(x2d.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)  # (T, E)
     gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -87,16 +88,18 @@ def _moe_dense(p: dict, cfg: ModelConfig,
     (``moe.py:88-105``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     B, S, d = x.shape
-    x2d = x.reshape(-1, d)
+    # the fold of (batch, seq) into tokens keeps only a leading split: under
+    # a mesh the sequence is gathered first
+    x2d = constrain(x, "batch", None, None).reshape(-1, d)
     gates, idx, aux = _route(p["router"], x2d, cfg)
-    h = torch.einsum("td,edf->tef", x2d, p["w_gate"].to(cdt))
-    u = torch.einsum("td,edf->tef", x2d, p["w_up"].to(cdt))
+    h = einsum("td,edf->tef", x2d, p["w_gate"].to(cdt))
+    u = einsum("td,edf->tef", x2d, p["w_up"].to(cdt))
     h = constrain(_act(cfg, h) * u, None, "experts", None)
-    y_e = torch.einsum("tef,efd->ted", h, p["w_down"].to(cdt))
+    y_e = einsum("tef,efd->ted", h, p["w_down"].to(cdt))
     y_e = constrain(y_e, None, "experts", None)
     sel = F.one_hot(idx, cfg.n_experts).to(cdt)  # (T, K, E)
-    w_comb = torch.einsum("tk,tke->te", gates.to(cdt), sel)
-    y = torch.einsum("te,ted->td", w_comb, y_e)
+    w_comb = einsum("tk,tke->te", gates.to(cdt), sel)
+    y = einsum("te,ted->td", w_comb, y_e)
     return y.reshape(B, S, d), aux
 
 

@@ -25,19 +25,50 @@ Caches are updated in place, as everywhere in the port: RG-LRU writes its
 ``x_tm`` with ``copy_`` after reading them, the channel mix writes
 ``x_cm``.  In decode, an ``active`` mask keeps an inactive slot's state bit
 for bit.
+
+Under a mesh JAX's constraints are kept (``rwkv_heads`` on r, k, v and
+log_w; ``lru_width`` on RG-LRU's input), the products run on local shards
+(``sharding.einsum`` / ``matmul``), and every scan -- the WKV forms, RG-LRU's
+conv and doubling scan -- runs in ``shard_map`` on each rank's (batch,
+heads or width) shard, the sequence whole.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, current_mesh_info,
+                                              einsum, is_dtensor, matmul,
+                                              replicate_like, rowwise,
+                                              shard_map)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import wkv_ref as wkv_recurrent
 from repro_torch.models.layers import Param, dense_init, torch_dtype
 from repro_torch.utils import Spec
 
 RG_LRU_C = 8.0  # Griffin's fixed gate exponent
+
+
+def _local(fn, args: tuple, axes: tuple, outs: list):
+    """``fn(*args)``; under a mesh, on each rank's local shards
+    (``shard_map``), each arg laid out by its logical axes in ``axes`` and
+    each output by its ``(shape, axes)`` in ``outs``.  The recurrences here
+    run along the sequence (dim 1), which none of these layouts splits, and
+    are independent across the split dims, so a rank runs its own rows and
+    channels whole: no DTensor op sees the scan (torch 2.11's DTensor has
+    no rule for ``cumsum``'s backward, a ``flip``, and fails in ``pad``)."""
+    info = current_mesh_info()
+    if info is None or not is_dtensor(args[0]):
+        return fn(*args)
+    spec = info.spec
+    out_specs = [spec(shape, ax) for shape, ax in outs]
+    return shard_map(fn, in_specs=tuple(spec(a.shape, ax)
+                                        for a, ax in zip(args, axes)),
+                     out_specs=out_specs if len(outs) > 1 else out_specs[0])(
+        *args)
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +140,10 @@ def _rg_gates(p: dict, cfg: ModelConfig, u: torch.Tensor):
     """(log_a, gated), f32, from ``u`` in the compute dtype: the gate
     products run in that dtype, ``b_a``, ``b_i`` and ``lam`` are read in
     f32."""
-    r = torch.sigmoid((u @ p["w_a"].to(u.dtype)).float() + p["b_a"].float())
-    i = torch.sigmoid((u @ p["w_i"].to(u.dtype)).float() + p["b_i"].float())
+    r = torch.sigmoid(matmul(u, p["w_a"].to(u.dtype)).float()
+                      + p["b_a"].float())
+    i = torch.sigmoid(matmul(u, p["w_i"].to(u.dtype)).float()
+                      + p["b_i"].float())
     log_a = -RG_LRU_C * F.softplus(p["lam"].float()) * r
     mult = torch.sqrt(-torch.expm1(2.0 * log_a))
     gated = u.float() * i * mult
@@ -147,14 +180,14 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
     before ``w_o``."""
     cdt = torch_dtype(cfg.compute_dtype)
     cw = cfg.conv_width
-    y_gate = F.gelu(x @ p["w_y"].to(cdt), approximate="tanh")
-    u_pre = x @ p["w_x"].to(cdt)
+    y_gate = F.gelu(matmul(x, p["w_y"].to(cdt)), approximate="tanh")
+    u_pre = constrain(matmul(x, p["w_x"].to(cdt)), "batch", None, "lru_width")
     w_c, b_c = p["conv_w"].float(), p["conv_b"].float()
 
     if mode == "decode":
         conv_cache = state["conv"]  # (B, cw-1, w) holds u_{t-cw+1..t-1}
         u = (u_pre[:, 0].float() * w_c[-1]
-             + torch.einsum("bcw,cw->bw", conv_cache, w_c[:-1]) + b_c)
+             + einsum("bcw,cw->bw", conv_cache, w_c[:-1]) + b_c)
         log_a, gated = _rg_gates(p, cfg, u[:, None, :].to(cdt))
         h = torch.exp(log_a[:, 0]) * state["h"] + gated[:, 0]
         conv_new = torch.cat([conv_cache[:, 1:], u_pre.float()], dim=1)
@@ -163,7 +196,8 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
             conv_new = torch.where(active[:, None, None], conv_new, conv_cache)
         state["h"].copy_(h)
         state["conv"].copy_(conv_new)
-        return (y_gate * h[:, None, :].to(cdt)) @ p["w_o"].to(cdt), state
+        out = matmul(y_gate * h[:, None, :].to(cdt), p["w_o"].to(cdt))
+        return constrain(out, "batch", None, "embed_fsdp"), state
 
     u_hist = u_pre.float()
     if mode == "chunk_prefill":
@@ -171,11 +205,15 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
         # u-history, convolve, then drop the history rows (a fresh state is
         # zeros, which is the conv's own zero padding)
         u_hist = torch.cat([state["conv"], u_hist], dim=1)
-        u = _causal_conv(u_hist, w_c, b_c)[:, cw - 1:].to(cdt)
-    else:
-        u = _causal_conv(u_hist, w_c, b_c).to(cdt)
-    log_a, gated = _rg_gates(p, cfg, u)
-    a_cum, h = rglru_scan(torch.exp(log_a), gated)
+    ax = ("batch", None, "lru_width")
+    u = _local(_causal_conv, (u_hist, w_c, b_c),
+               (ax, (None, "lru_width"), ("lru_width",)),
+               [(u_hist.shape, ax)])
+    if mode == "chunk_prefill":
+        u = u[:, cw - 1:]
+    log_a, gated = _rg_gates(p, cfg, u.to(cdt))
+    a_cum, h = _local(rglru_scan, (torch.exp(log_a), gated), (ax, ax),
+                      [(gated.shape, ax)] * 2)
     if mode == "chunk_prefill":
         h = h + a_cum * state["h"][:, None, :]
 
@@ -186,7 +224,8 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
         tail = u_hist[:, -(cw - 1):]
         state["conv"].copy_(F.pad(tail, (0, 0, cw - 1 - tail.shape[1], 0)))
         state["h"].copy_(h[:, -1])
-    return (y_gate * h.to(cdt)) @ p["w_o"].to(cdt), state
+    out = matmul(y_gate * h.to(cdt), p["w_o"].to(cdt))
+    return constrain(out, "batch", None, "embed_fsdp"), state
 
 
 # ---------------------------------------------------------------------------
@@ -284,12 +323,15 @@ def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
 
 
 def _ddlerp(p: dict, x: torch.Tensor, xx: torch.Tensor):
-    """Finch data-dependent token-shift mixes for the 5 streams."""
+    """Finch data-dependent token-shift mixes for the 5 streams.  Under a
+    mesh the (5, lora) mix dims stay whole: DTensor cannot view a split
+    5 x lora dim back into its two factors."""
     dx = xx - x
     z = x + dx * p["mu_x"].to(x.dtype)
-    za = torch.tanh(torch.einsum("bsd,dkl->bskl", z, p["mix_A"].to(x.dtype)))
+    za = torch.tanh(einsum("bsd,dkl->bskl", z, p["mix_A"].to(x.dtype)))
+    za = constrain(za, "batch", "seq_act", None, None)
     mixes = (p["mu"].to(x.dtype)
-             + torch.einsum("bskl,kld->bskd", za, p["mix_B"].to(x.dtype)))
+             + einsum("bskl,kld->bskd", za, p["mix_B"].to(x.dtype)))
     return tuple(x + dx * mixes[:, :, i] for i in range(_N_MIX))  # w,k,v,r,g
 
 
@@ -328,6 +370,13 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _group_norm(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor, n: int,
                 eps: float = 1e-5) -> torch.Tensor:
+    """Per-head norm of each token's ``d = heads x n`` channels; under a
+    mesh on each rank's own rows, as ``apply_norm``."""
+    return rowwise(functools.partial(_group_norm_rows, n=n, eps=eps), y, w, b)
+
+
+def _group_norm_rows(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                     n: int, eps: float) -> torch.Tensor:
     B, S, d = y.shape
     yh = y.reshape(B, S, d // n, n).float()
     mean = yh.mean(-1, keepdim=True)
@@ -352,30 +401,39 @@ def apply_rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     xx = _shift(x, prev)
     xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
 
-    r = (xr @ p["w_r"].to(cdt)).reshape(B, S, h, n)
-    k = (xk @ p["w_k"].to(cdt)).reshape(B, S, h, n)
-    v = (xv @ p["w_v"].to(cdt)).reshape(B, S, h, n)
-    g = xg @ p["w_g"].to(cdt)
+    r = matmul(xr, p["w_r"].to(cdt)).reshape(B, S, h, n)
+    k = matmul(xk, p["w_k"].to(cdt)).reshape(B, S, h, n)
+    v = matmul(xv, p["w_v"].to(cdt)).reshape(B, S, h, n)
+    g = matmul(xg, p["w_g"].to(cdt))
     # decay_B and u are read in f32, as JAX reads them
     w_raw = (p["w0"].float()
-             + torch.tanh(xw @ p["decay_A"].to(cdt)).float()
-             @ p["decay_B"].float())
+             + matmul(torch.tanh(matmul(xw, p["decay_A"].to(cdt))).float(),
+                      p["decay_B"].float()))
     log_w = -torch.exp(w_raw).reshape(B, S, h, n)
 
-    r32, k32, v32 = (a.float().contiguous() for a in (r, k, v))
+    heads = ("batch", None, "rwkv_heads", None)
+    r32, k32, v32 = (constrain(a.float().contiguous(), *heads)
+                     for a in (r, k, v))
+    log_w = constrain(log_w, *heads)
     u = p["u"].float().contiguous()
-    s0 = (state["S"] if state is not None
-          else torch.zeros((B, h, n, n), dtype=torch.float32, device=x.device))
+    s0 = (state["S"] if state is not None else replicate_like(
+        torch.zeros((B, h, n, n), dtype=torch.float32, device=x.device), r32))
 
     if mode == "decode":
-        y, s_fin = wkv_recurrent(r32, k32, v32, log_w, u, s0)
+        scan = wkv_recurrent
     elif mode in ("prefill", "chunk_prefill"):
-        y, s_fin = kops.linear_scan(r32, k32, v32, log_w.contiguous(), u, s0)
+        def scan(*a):
+            return kops.linear_scan(*(t.contiguous() for t in a))
     else:  # train: the differentiable chunked form (the kernel has no backward)
-        y, s_fin = wkv_chunked(r32, k32, v32, log_w, u, s0)
+        scan = wkv_chunked
+    state_ax = ("batch", "rwkv_heads", None, None)
+    y, s_fin = _local(scan, (r32, k32, v32, log_w, u, s0),
+                      (heads,) * 4 + (("rwkv_heads", None), state_ax),
+                      [(r32.shape, heads), (s0.shape, state_ax)])
 
     y = _group_norm(y.reshape(B, S, d).to(cdt), p["ln_w"], p["ln_b"], n)
-    out = (y * F.silu(g)) @ p["w_o"].to(cdt)
+    out = constrain(matmul(y * F.silu(g), p["w_o"].to(cdt)),
+                    "batch", "seq_act", None)
 
     if state is not None:
         x_tm = x[:, -1].float()
@@ -399,8 +457,9 @@ def apply_rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     dx = xx - x
     xk = x + dx * p["mu_k"].to(cdt)
     xr = x + dx * p["mu_r"].to(cdt)
-    kk = torch.square(torch.relu(xk @ p["w_k"].to(cdt)))
-    out = torch.sigmoid(xr @ p["w_r"].to(cdt)) * (kk @ p["w_v"].to(cdt))
+    kk = torch.square(torch.relu(matmul(xk, p["w_k"].to(cdt))))
+    out = constrain(torch.sigmoid(matmul(xr, p["w_r"].to(cdt)))
+                    * matmul(kk, p["w_v"].to(cdt)), "batch", "seq_act", None)
     if state is not None:
         x_cm = x[:, -1].float()
         if active is not None:

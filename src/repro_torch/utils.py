@@ -2,12 +2,16 @@
 
 Parameters and caches are plain nested ``dict``s whose leaves are tensors
 (or ``Spec``s while a cache is being described), keyed exactly as the JAX
-package keys its pytrees so the two can be compared leaf by leaf.
+package keys its pytrees so the two can be compared leaf by leaf.  The
+size, formatting and timing helpers at the end are ``repro.utils``'s.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+import math
+import time
+from typing import Any, Callable, Iterator, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -73,3 +77,78 @@ def sync(device: torch.device) -> None:
     """Wait for queued device work (host clocks around device work)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# ---------------------------------------------------------------------------
+# Sizes, formatting and timing (the port's copy of ``repro.utils``)
+# ---------------------------------------------------------------------------
+
+
+def _shaped_leaves(tree: Any) -> list[Any]:
+    """Every leaf with a ``shape`` under dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _shaped_leaves(v)]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):
+        return [x for v in tree for x in _shaped_leaves(v)]
+    return [tree] if hasattr(tree, "shape") else []
+
+
+def tree_size(tree: Any) -> int:
+    """Total number of elements across all leaves (a DTensor counts whole)."""
+    return sum(math.prod(x.shape) for x in _shaped_leaves(tree))
+
+
+def tree_bytes(tree: Any) -> int:
+    """Total bytes across all leaves: tensors on any device, meta and fake
+    tensors included (shape times itemsize, nothing read), ``Spec``s and
+    numpy arrays too."""
+    total = 0
+    for x in _shaped_leaves(tree):
+        dt = x.dtype
+        size = dt.itemsize if isinstance(dt, torch.dtype) else np.dtype(dt).itemsize
+        total += math.prod(x.shape) * size
+    return total
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB", "PiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} EiB"
+
+
+def human_count(n: float) -> str:
+    for unit in ("", "K", "M", "B", "T"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}"
+        n /= 1000.0
+    return f"{n:.2f}Q"
+
+
+def human_time(seconds: float) -> str:
+    if seconds < 1e-3:
+        return f"{seconds * 1e6:.1f} us"
+    if seconds < 1.0:
+        return f"{seconds * 1e3:.2f} ms"
+    if seconds < 120.0:
+        return f"{seconds:.2f} s"
+    return f"{seconds / 60.0:.1f} min"
+
+
+class Stopwatch:
+    def __enter__(self) -> "Stopwatch":
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.elapsed = time.perf_counter() - self.start
+
+
+def round_up(x: int, multiple: int) -> int:
+    return int(math.ceil(x / multiple) * multiple)
+
+
+def chunks(seq: list, n: int) -> Iterator[list]:
+    for i in range(0, len(seq), n):
+        yield seq[i: i + n]

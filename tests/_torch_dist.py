@@ -9,10 +9,13 @@ rank, and returns what rank 0 passed to ``emit(name, **arrays)``:
 ``{name: {key: array}}``.  The children import ``repro_torch`` and this
 module only (never JAX); arrays the body needs come in through ``tmp_path``
 (``DIR``).  ``sharded_vs_unsharded`` is the children's one comparison of a
-run on a mesh against the unsharded run.
+run on a mesh against the unsharded run; it runs the mesh side under
+``no_strided_views``, so a fold that only newer torch versions can make
+fails here as it fails on the cards.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -86,12 +89,47 @@ def run_ranks(body: str, world: int, tmp_path, timeout: float = 180.0,
     return out
 
 
+@contextlib.contextmanager
+def no_strided_views():
+    """Fail any DTensor op whose result is laid out as a strided shard: the
+    layout of a fold that puts a split dim behind another (a (batch, seq)
+    split over (data, model) viewed as one dim).  Torch 2.11's DTensor
+    cannot make that view and stops (ROADMAP §3, fault 3); newer versions
+    make it, so without this guard a CPU run on a newer torch passes where
+    the cards' torch fails."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import placement_types
+
+    strided = getattr(placement_types, "_StridedShard", None)
+    dispatcher = type(DTensor._op_dispatcher)
+    wrap = dispatcher.__dict__.get("wrap")
+    if strided is None or not isinstance(wrap, staticmethod):
+        yield  # a torch without the layout, or another dispatcher
+        return
+
+    def guarded(res, spec):
+        for sp in spec if isinstance(spec, (list, tuple)) else [spec]:
+            if sp is not None and any(isinstance(p, strided)
+                                      for p in sp.placements):
+                raise RuntimeError(f"a DTensor op laid its result out as {sp}:"
+                                   " a fold of a split dim behind another")
+        return wrap.__func__(res, spec)
+
+    dispatcher.wrap = staticmethod(guarded)
+    try:
+        yield
+    finally:
+        dispatcher.wrap = wrap
+
+
 def sharded_vs_unsharded(model, params, batch, info, which="total_loss",
-                         reference=None) -> dict:
+                         reference=None, layouts=None) -> dict:
     """The loss ``which`` (a key of ``train_loss``'s metrics) and its
     gradients from ``params`` and ``batch``, unsharded and then on ``info``'s
-    mesh (parameters laid out by ``param_axes``, the batch as ``("batch",
-    "seq_act")``).  ``reference(params, batch)``, where given, is the
+    mesh (parameters laid out by ``param_axes``, each batch key by its entry
+    in ``layouts``, else as ``("batch", "seq_act")``: whisper's ``frames``
+    take ``("batch", "seq_act", None)``, as JAX's ``specs.py:34-36``).
+    ``reference(params, batch)``, where given, is the
     unsharded loss instead.  Returns arrays for ``emit``: ``loss``
     (unsharded, sharded), ``grad_err`` (each leaf's max |sharded -
     unsharded| over its max |unsharded|), ``calls`` (the MoE paths on the
@@ -108,12 +146,13 @@ def sharded_vs_unsharded(model, params, batch, info, which="total_loss",
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     ref = reference(params, batch)
     ref_grads = torch.autograd.grad(ref, leaves)
-    with use_mesh_info(info):
+    with use_mesh_info(info), no_strided_views():
         moe.PATH_CALLS.update(dense=0, shard_map=0)
         dp = distribute_tree(tree_map(lambda t: t.detach(), params),
                              model.param_axes, info)
         dl = [p.requires_grad_(True) for p in tree_leaves(dp)]
-        db = {k: info.distribute(v, ("batch", "seq_act"))
+        db = {k: info.distribute(v, (layouts or {}).get(k, ("batch",
+                                                            "seq_act")))
               for k, v in batch.items()}
         loss = model.train_loss(dp, db)[1][which]
         grads = torch.autograd.grad(loss, dl)

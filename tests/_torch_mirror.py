@@ -33,20 +33,26 @@ PORT_MODULES = {
     "repro.launch.router": "repro_torch.launch.router",
     "repro.data": "repro_torch.data",
     "benchmarks.cc_pipeline": "benchmarks.torch_cc_pipeline",
+    "repro.launch.dryrun": "repro_torch.launch.dryrun",
+    "benchmarks.table1_cost": "benchmarks.torch_table1_cost",
+    "benchmarks.fig3_reliability": "benchmarks.torch_fig3_reliability",
+    "benchmarks.fig4_effort": "benchmarks.torch_fig4_effort",
+    "benchmarks.fig5_cost_by_asset": "benchmarks.torch_fig5_cost_by_asset",
+    "benchmarks.fig6_durations": "benchmarks.torch_fig6_durations",
 }
 #: the port's modules whose entry points take ``device`` (default "cuda")
-CPU_BOUND = ("repro_torch.data.commoncrawl", "benchmarks.torch_cc_pipeline")
+CPU_BOUND = ("repro_torch.data.commoncrawl", "benchmarks.torch_cc_pipeline",
+             "benchmarks.torch_table1_cost", "benchmarks.torch_fig3_reliability",
+             "benchmarks.torch_fig4_effort",
+             "benchmarks.torch_fig5_cost_by_asset",
+             "benchmarks.torch_fig6_durations")
 #: the reference files mirrored by tests/test_torch_core_<name>.py
 MIRRORED = ("test_orchestrator", "test_planner", "test_store",
             "test_recovery", "test_adaptive", "test_selection",
             "test_schedule_engine", "test_router", "test_commoncrawl",
-            "test_planner_properties", "test_properties")
+            "test_planner_properties", "test_properties", "test_paper_claims")
 #: (reference file, test) -> why the port cannot run it yet
-SKIP = {
-    ("test_recovery", "test_resume_preview_cli"):
-        "needs repro_torch.launch.dryrun, which is not ported yet "
-        "(ROADMAP item 9)",
-}
+SKIP: dict[tuple[str, str], str] = {}
 
 
 def _port_name(module: str) -> str:

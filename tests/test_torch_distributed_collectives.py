@@ -75,8 +75,11 @@ def compressed(tmp_path_factory):
         for _ in range(20):
             m, e = compressed_psum(g, group, e)
             est = est + m
+        # a transposed view, as a gradient from a local product can be
+        _, t_total, _ = quantized_sum(g.reshape(8, 8).t(), group)
         emit("c", total=total.numpy(), scale=scale.numpy(), mean=m1.numpy(),
-             errors=torch.stack(errs).numpy(), avg=(est / 20).numpy())
+             errors=torch.stack(errs).numpy(), avg=(est / 20).numpy(),
+             t_total=t_total.numpy(), t_dense=np.array(t_total.is_contiguous()))
     """, world=4, tmp_path=d)["c"]
 
 
@@ -87,6 +90,16 @@ def test_compressed_psum_matches_numpy_exactly(compressed):
     assert compressed["scale"] == scale
     np.testing.assert_array_equal(compressed["mean"], mean)
     np.testing.assert_array_equal(compressed["errors"], err)
+
+
+def test_quantized_sum_of_a_transposed_view(compressed):
+    """The all-reduce's buffer is dense whatever the input's layout: NCCL
+    refuses a strided one (gloo, here, takes it), and a gradient from a
+    product on local shards may be a transposed view."""
+    total, _, _, _ = _np_compressed(_g())
+    assert bool(compressed["t_dense"])
+    np.testing.assert_array_equal(compressed["t_total"],
+                                  total.reshape(8, 8).T)
 
 
 def test_compressed_psum_error_bounds(compressed):

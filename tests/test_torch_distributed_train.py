@@ -16,7 +16,8 @@ trajectory equals a straight run, ``2e-3``,
   shard's own.
 * GQA: qwen2-vl smoke, B 4 x S 64, on 2 x 2 and on 1 x 4 (one head a
   rank): loss and every gradient; the same for recurrentgemma smoke (RG-LRU
-  and sliding-window MQA), B 4 x S 32.
+  and sliding-window MQA), B 4 x S 32, for rwkv6 smoke on 2 x 2 and 1 x 4
+  and for whisper-medium smoke (with frames) on 2 x 2.
 * ``_shard_aligned_attention``: gemma-2b smoke with 6 heads (not a multiple
   of the model axis) on a 1 x 4 mesh, B 2 x S 2048, remat ``"full"``, the
   score budget lowered so each device loops over row chunks: loss and every
@@ -98,8 +99,9 @@ for name, spec in json.load(open(os.path.join(DIR, "cases.json"))).items():
         moe._moe_dense = shard_router_loss(*spec["mesh"])
     blocks[0] = 0
     try:
-        got = sharded_vs_unsharded(model, params, batch, info,
-                                   spec.get("grad_of", "total_loss"))
+        got = sharded_vs_unsharded(
+            model, params, batch, info, spec.get("grad_of", "total_loss"),
+            layouts={k: tuple(v) for k, v in spec.get("layouts", {}).items()})
     finally:
         moe._moe_dense = dense
     emit(name, blocks=np.array(blocks), **got)
@@ -125,6 +127,9 @@ def _write_case(d, arch, cfg_kw, B, S, mesh, seed=0, **extra):
     batch = {"tokens": rng.randint(0, jcfg.vocab_size, (B, S)).astype(np.int32),
              "targets": rng.randint(0, jcfg.vocab_size, (B, S)).astype(np.int32),
              "weights": np.ones((B, S), np.float32)}
+    if jcfg.enc_dec:  # the encoder's frames, S of them a row
+        batch["frames"] = rng.standard_normal(
+            (B, S, jcfg.d_model)).astype(np.float32)
     np.savez(d / "batch.npz", **batch)
     loss, _ = jax.jit(model.train_loss)(params, {k: jnp.asarray(v)
                                                  for k, v in batch.items()})
@@ -169,6 +174,15 @@ def parity(tmp_path_factory):
         "aligned": ("gemma-2b", dict(compute_dtype="float32", n_heads=6,
                                      remat="full"), 2, 2048, [1, 4], 2,
                     {"patch": {"attention._SCORE_BYTES_BUDGET": ALIGNED_BUDGET}}),
+        # RWKV-6: the chunked WKV form on each rank's (batch, heads) shard
+        "rwkv_2x2": ("rwkv6-1.6b", dict(compute_dtype="float32"), 4, 32,
+                     [2, 2], 5, {}),
+        "rwkv_1x4": ("rwkv6-1.6b", dict(compute_dtype="float32"), 4, 32,
+                     [1, 4], 6, {}),
+        # frames laid out as JAX's specs.py:34-36
+        "whisper": ("whisper-medium", dict(compute_dtype="float32"), 4, 32,
+                    [2, 2], 7, {"layouts": {"frames": ["batch", "seq_act",
+                                                       None]}}),
     }
     specs, jax_losses = {}, {}
     for name, (arch, kw, B, S, mesh, seed, extra) in cases.items():
@@ -227,6 +241,30 @@ def test_sharded_loss_gqa_one_head_a_rank(parity):
 def test_sharded_loss_rglru(parity):
     """RG-LRU layers (their doubling scan) and sliding-window MQA."""
     got, jax_loss = parity["rglru"]
+    unsharded, sharded = got["loss"]
+    np.testing.assert_allclose(sharded, unsharded, rtol=2e-4)
+    np.testing.assert_allclose(sharded, jax_loss, rtol=2e-4)
+    assert got["grad_err"].max() < 1e-4, got["grad_err"]
+
+
+@pytest.mark.parametrize("case", ["rwkv_2x2", "rwkv_1x4"])
+def test_sharded_loss_rwkv6(parity, case):
+    """RWKV-6 under a mesh (ROADMAP §3, fault 4): the token-shift mixes with
+    their (5, lora) dims whole, r/k/v/log_w split over heads, the initial
+    state lifted onto the mesh, the WKV scan on each rank's own (batch,
+    heads) shard; heads two a rank on 2 x 2, one on 1 x 4."""
+    got, jax_loss = parity[case]
+    unsharded, sharded = got["loss"]
+    np.testing.assert_allclose(sharded, unsharded, rtol=2e-4)
+    np.testing.assert_allclose(sharded, jax_loss, rtol=2e-4)
+    assert got["grad_err"].max() < 1e-4, got["grad_err"]
+
+
+def test_sharded_loss_whisper(parity):
+    """whisper-medium on 2 x 2: frames laid out ``("batch", "seq_act",
+    None)``, the encoder, cross-attention, learned decoder positions and
+    LayerNorm under the mesh."""
+    got, jax_loss = parity["whisper"]
     unsharded, sharded = got["loss"]
     np.testing.assert_allclose(sharded, unsharded, rtol=2e-4)
     np.testing.assert_allclose(sharded, jax_loss, rtol=2e-4)

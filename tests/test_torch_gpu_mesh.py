@@ -9,12 +9,15 @@ and (1, 4).
   ``_SMALL_T`` 16), f32, B 4 x S 32, through ``_moe_shard_map``
   (asserted), at ``capacity_factor = E / top_k`` (nothing dropped): the
   next-token loss to ``rtol 2e-4`` and its gradients to 1e-4 of max |g|;
-* qwen2-vl smoke (GQA), B 4 x S 64: the total loss and every gradient.
+* qwen2-vl smoke (GQA), B 4 x S 64: the total loss and every gradient;
+* recurrentgemma smoke (RG-LRU and sliding-window MQA, ``conv_w`` drawn at
+  0.5 x a seeded normal) on (4, 1), and rwkv6 smoke (the chunked WKV form
+  over heads split on ``model``) on (2, 2) and (1, 4), B 4 x S 32.
 
-On the cards' torch 2.11, DTensor refuses to flatten a batch- and
-sequence- or head-sharded activation for a product, so every case whose
-model axis is above 1 fails (ROADMAP §3, fault 3).  Those cases are strict
-``xfail``: the day a torch version repairs it, they fail as passing.
+Torch 2.11's DTensor cannot flatten a split dim that is not the first of
+the fold, which ``@`` and ``einsum`` on DTensors do; the model's products
+run on local shards instead (``sharding.einsum``), so meshes whose model
+axis is above 1 train there too (ROADMAP §3, fault 3).
 
 * ``quantized_sum`` (``compressed_psum``'s int8 sum) over 4 ranks against
   a numpy transcription in f32, exactly; ``pipeline_apply`` over 4 stages
@@ -36,10 +39,13 @@ CASES = {
     "moe": ("deepseek_v2_236b", dict(n_experts=8, d_model=64,
                                      capacity_factor=4.0), 4, 32, 16, "loss"),
     "gqa": ("qwen2_vl_72b", {}, 4, 64, 4096, "total_loss"),
+    "rglru": ("recurrentgemma_9b", {}, 4, 32, 4096, "total_loss"),
+    "rwkv": ("rwkv6_1_6b", {}, 4, 32, 4096, "total_loss"),
 }
 
 MODEL = """
 from repro_torch.models import LanguageModel, moe
+from repro_torch.utils import tree_flatten
 import importlib
 
 mod, kw, B, S, small_t, which = CASE
@@ -49,11 +55,18 @@ cfg = cfg.scaled(compute_dtype="float32", **kw)
 model = LanguageModel(cfg, device=DEVICE)
 params = model.init(0)  # the same seed, so the same weights, on every card
 g = torch.Generator().manual_seed(1)
+for path, t in tree_flatten(params):  # RG-LRU's zero-init conv: a draw
+    if path.endswith("conv_w"):
+        t.copy_(0.5 * torch.randn(t.shape, generator=g).to(DEVICE))
 batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g).to(DEVICE)
          for k in ("tokens", "targets")}
+layouts = {}
+if cfg.enc_dec:  # whisper's frames, laid out as JAX's specs.py:34-36
+    batch["frames"] = torch.randn(B, S, cfg.d_model, generator=g).to(DEVICE)
+    layouts["frames"] = ("batch", "seq_act", None)
 emit("case", **sharded_vs_unsharded(model, params, batch,
                                     small_mesh_info(MESH, device_type=DEVICE),
-                                    which))
+                                    which, layouts=layouts))
 """
 
 COLLECTIVES = """
@@ -77,12 +90,6 @@ emit("coll", x=x, total=total.cpu().numpy(), scale=scale.cpu().numpy(),
      pipe_err=np.array([float((out - h).abs().max())]))
 """
 
-FAULT_3 = pytest.mark.xfail(
-    strict=True, raises=AssertionError,
-    reason="ROADMAP §3 fault 3: torch 2.11's DTensor cannot flatten a "
-           "sharded dim that is not the first (aten.view in a product)")
-
-
 def _four_cards(body: str, tmp_path) -> dict:
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards")
@@ -90,11 +97,11 @@ def _four_cards(body: str, tmp_path) -> dict:
                      backend="nccl")
 
 
-@pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("mesh", [
-    pytest.param((4, 1), id="4x1"),
-    pytest.param((2, 2), id="2x2", marks=FAULT_3),
-    pytest.param((1, 4), id="1x4", marks=FAULT_3)])
+@pytest.mark.parametrize("mesh,name", [
+    pytest.param(mesh, name, id=f"{mesh[0]}x{mesh[1]}-{name}")
+    for mesh, name in [*(((4, 1), n) for n in ("moe", "gqa", "rglru")),
+                       *(((2, 2), n) for n in ("moe", "gqa", "rwkv")),
+                       *(((1, 4), n) for n in ("moe", "gqa", "rwkv"))]])
 def test_mesh_paths_on_four_cards(name, mesh, tmp_path):
     got = _four_cards(f"CASE = {CASES[name]!r}\nMESH = {mesh!r}\n" + MODEL,
                       tmp_path)["case"]
