@@ -150,7 +150,25 @@ back to the CPU):
                expert einsums, forward and backward, timed alone on each
                path; ``compressed_psum_tree`` twice over a step's gradients
                on the NCCL group, bit-equal to the int8 round trip;
-               neither kernel launches;
+               rwkv6-1.6b trained 5 steps on the mesh and 5 without;
+               neither kernel launches in training.  Then serving on the
+               same mesh: gemma-2b and rwkv6-1.6b at full width, 6
+               layers each (a labelled depth cut), the trace's prompts one bf16 prefill each and 16 greedy decode
+               steps, on the mesh and without one (time to first token, ms
+               a decode step, busy share, peak; the greedy tokens equal;
+               flash or WKV launched once a prefill per layer on the local
+               shards), and one prompt in f32, every logit on the mesh
+               within 1e-3 of the no-mesh run's;
+10b. claims, dry run -- the paper's claims with the crawl on the card,
+               equal to the CPU's; the dry run's predictions for one card
+               against it;
+10c. host -- in children: the five orchestration twins
+               (benchmarks/torch_*.py) --smoke at once, the crawl on the
+               card, and nothing else beside them; their unchanged
+               check_*_regression.py gates against
+               benchmarks/baselines/torch_*_baseline.json; then one
+               training cell and four serving cells of the 32x8 mesh on
+               fake process groups, all five at once;
 11. the kernels JSON line, then the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
@@ -164,6 +182,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -366,6 +385,16 @@ DIST_PARITY_RTOL, DIST_GRAD_TOL = 2e-4, 1e-3
 # first step's loss on the mesh against the one without, relative
 DIST_RWKV, DIST_RWKV_STEPS, DIST_RWKV_RTOL = "rwkv6-1.6b", 5, 1e-3
 
+# serving on the same mesh (_dist_serve; ROADMAP §3, fault 5): gemma-2b
+# (MQA at D 256: flash's wgmma body) and rwkv6-1.6b (the WKV kernel) at full
+# width, cut to their first 6 layers (the mesh's host dispatch is paid a
+# layer; the full depths serve without a mesh in phase_serve), the trace's
+# prompts (PROMPT_LENS) one prefill each (B 1), then MAX_NEW greedy decode
+# steps, bf16, on the mesh and without one; then the first DIST_SERVE_F32
+# prompts in f32, the mesh fed the no-mesh run's tokens, every logit held
+# to PARITY_TOL
+DIST_SERVE, DIST_SERVE_F32 = ("gemma-2b@6", "rwkv6-1.6b@6"), 1
+
 # the paper-claims phase (phase_paper_claims): the seeds and limits of
 # tests/test_paper_claims.py.  The card's numbers must equal the CPU's but
 # for the simulated makespan share, whose runs differ in the last digits
@@ -381,6 +410,27 @@ CLAIMS_MAKESPAN_RTOL = 1e-6
 # fake process group in a child process on the host
 DRY_ARCH, DRY_STEPS, DRY_BAND = "gemma-2b", 5, (0.4, 2.5)
 DRY_CELL = ("gemma-2b", "train_4k", "32x8")
+# the dry run's serving cells (ROADMAP §3, fault 5), each in a child on the
+# host at once: each must run (status ok) with its argument bytes a rank
+# under the card's 80 GB
+DRY_SERVE_CELLS = (("gemma-2b", "prefill_32k", "32x8"),
+                   ("gemma-2b", "decode_32k", "32x8"),
+                   ("minicpm3-4b", "decode_32k", "32x8"),
+                   ("rwkv6-1.6b", "long_500k", "32x8"))
+
+# the orchestration benchmarks' twins (phase_orch_benches), --smoke, each
+# in a child at once, the crawl assets on the card; twin -> (its gate
+# benchmarks/check_<gate>_regression.py, its baseline under
+# benchmarks/baselines/), or None for the one without a gate
+ORCH_BENCHES = {
+    "torch_planner_vs_greedy": None,
+    "torch_planner_scale": ("planner", "torch_planner_scale"),
+    "torch_store_cache": ("store", "torch_store_cache"),
+    "torch_recovery_bench": ("recovery", "torch_recovery"),
+    "torch_adaptive_drift": ("adaptive", "torch_adaptive_drift"),
+}
+ORCH_CRAWL = ("torch_store_cache", "torch_recovery_bench",
+              "torch_adaptive_drift")
 
 def log(*a) -> None:
     print(*a, flush=True)
@@ -2280,12 +2330,160 @@ def _dist_rwkv(card: str, info) -> None:
                              "no-mesh step")
 
 
-def phase_distributed(card: str) -> None:
-    """Training under a mesh: a (data 1, model 1) DeviceMesh over an NCCL
-    group of one rank (a FileStore rendezvous in a temporary directory; no
-    fallback to gloo or the CPU), then ``_dist_parity``, ``_dist_train`` on
-    the mesh and without one, ``_dist_experts`` and ``_dist_collectives``.
-    Neither kernel runs: the mesh path trains through ``attention_core``."""
+def _serve_run(model, params, prompts, info, steps: int,
+               follow: list | None = None) -> list[tuple]:
+    """Each prompt (B 1) through ``prefill`` and then ``steps`` greedy
+    ``decode_step``s, on ``info``'s mesh (``params`` laid out already; the
+    cache, tokens and positions laid out here as ``launch/specs.py`` lays
+    them) or without one (None).  ``follow`` (a token list a prompt) feeds
+    those tokens in place of the run's own argmax.  A prompt's result:
+    (its logits, (1 + steps, vocab) f32 on the host; its argmax tokens; the
+    time to the first token, s; each decode step's wall, s), each wall up
+    to the argmax read on the host."""
+    from repro_torch.distributed.sharding import full_value, use_mesh_info
+    from repro_torch.utils import tree_map
+
+    def lay(t, axes):
+        return t if info is None else info.distribute(t, axes)
+
+    dtype = torch.float32 if model.cfg.compute_dtype == "float32" \
+        else torch.bfloat16
+    out = []
+    with use_mesh_info(info), torch.no_grad():
+        for i, p in enumerate(prompts):
+            S = len(p)
+            cache = model.init_cache(1, S + steps, dtype=dtype)
+            if info is not None:
+                cache = tree_map(lambda sp, t: info.distribute(t, sp.axes),
+                                 model.cache_specs(1, S + steps, dtype=dtype),
+                                 cache)
+            tokens = lay(torch.tensor([p], dtype=torch.int32, device="cuda"),
+                         ("batch", "seq_act"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+            rows = [full_value(logits).float()]
+            picked = [int(rows[-1][0].argmax())]
+            ttft = time.perf_counter() - t0
+            walls = []
+            for t in range(steps):
+                tok = follow[i][t] if follow else picked[-1]
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(
+                    params, lay(torch.tensor([[tok]], dtype=torch.int32,
+                                             device="cuda"), ("batch", None)),
+                    cache, lay(torch.tensor([S + t], dtype=torch.int32,
+                                            device="cuda"), ("batch",)))
+                rows.append(full_value(logits).float())
+                picked.append(int(rows[-1][0].argmax()))
+                walls.append(time.perf_counter() - t0)
+            out.append((torch.cat(rows).cpu(), picked, ttft, walls))
+            del cache
+    return out
+
+
+def _dist_serve(card: str, info) -> dict[str, dict[str, int]]:
+    """Serving on the (1, 1) mesh (ROADMAP §3, fault 5): DIST_SERVE at full
+    width, the trace's prompts one prefill each then MAX_NEW greedy decode
+    steps in bf16, on the mesh and without one: time to first token, ms a
+    decode step, the busy share of one profiled prompt, the peak; the
+    greedy tokens equal; the kernel -- flash (gemma-2b) or WKV (rwkv6) --
+    launched once a prefill per layer that attends or scans, on the mesh
+    inside ``shard_map`` on the local shards.  Then DIST_SERVE_F32 prompts
+    with f32 compute, every logit on the mesh within PARITY_TOL of the
+    no-mesh run's.  Returns the mesh run's launches, by kernel."""
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import LanguageModel
+
+    launches: dict[str, dict[str, int]] = {"flash": {}, "wkv": {}}
+    for arch in DIST_SERVE:
+        cfg = _config(arch)
+        if "rwkv6" in cfg.layer_types():
+            kernel, key, per_prefill = ls, "wkv", cfg.n_layers
+        else:
+            kernel, key, per_prefill = fa, "flash", _attn_layers(cfg)
+        model = LanguageModel(cfg, device="cuda")
+        params = model.init(0)
+        prompts = _prompts(cfg.vocab_size)
+        cast = model.cast_for_compute(params)
+        picked = {}
+        for tag, mesh in (("no mesh", None), ("mesh (1, 1)", info)):
+            p = cast if mesh is None else distribute_tree(
+                cast, model.param_axes, info)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernel.launches = 0
+            runs = _serve_run(model, p, prompts, mesh, MAX_NEW)
+            n = kernel.launches
+            peak = torch.cuda.max_memory_allocated()
+            _, wall, events, by_name = _profiled(
+                lambda: _serve_run(model, p, prompts[:1], mesh, 4))
+            busy = (f"{sum(by_name.values()) / 1e3 / wall:.4f}" if events
+                    else "not measured")
+            ttft = [r[2] * 1e3 for r in runs]
+            step = [w * 1e3 for r in runs for w in r[3]]
+            picked[tag] = [r[1] for r in runs]
+            log(f"[dist-serve] {cfg.name} ({_depth(cfg)}), {tag}, bf16, "
+                f"prompts {PROMPT_LENS} one prefill each + {MAX_NEW} "
+                f"greedy steps: time to first token {ttft} ms (median "
+                f"{np.median(ttft):.2f}); a decode step median "
+                f"{np.median(step):.2f} ms (min {min(step):.2f}, max "
+                f"{max(step):.2f}); busy {busy} (prompt 0, 4 steps, "
+                f"{len(events)} device events); peak "
+                f"{peak / 2**30:.2f} GiB; {key} launches {n} ({card})")
+            if n != per_prefill * len(prompts):
+                raise AssertionError(f"[dist-serve] {cfg.name} {tag}: {n} "
+                                     f"{key} launches, not {per_prefill} x "
+                                     f"{len(prompts)}")
+            if mesh is not None:
+                launches[key][f"{cfg.name} mesh (1, 1) serve"] = n
+            del p, runs
+        same = picked["mesh (1, 1)"] == picked["no mesh"]
+        log(f"[dist-serve] {cfg.name} greedy tokens on the mesh equal to the "
+            f"no-mesh run's: {same}")
+        if not same:
+            raise AssertionError(f"[dist-serve] {cfg.name}: greedy tokens "
+                                 "part on the mesh")
+        del cast
+        torch.cuda.empty_cache()
+
+        model32 = LanguageModel(cfg.scaled(compute_dtype="float32"),
+                                device="cuda")
+        few = prompts[:DIST_SERVE_F32]
+        kernel.launches = 0
+        off = _serve_run(model32, params, few, None, MAX_NEW)
+        dp = distribute_tree(params, model.param_axes, info)
+        on = _serve_run(model32, dp, few, info, MAX_NEW,
+                        follow=[r[1] for r in off])
+        if kernel.launches != 2 * per_prefill * len(few):
+            raise AssertionError(f"[dist-serve] {cfg.name} f32: "
+                                 f"{kernel.launches} {key} launches")
+        for i, (a, b) in enumerate(zip(on, off)):
+            err = float((a[0] - b[0]).abs().max())
+            scale = float(b[0].abs().max())
+            log(f"[dist-serve] {cfg.name} f32 prompt {i} (len {len(few[i])}):"
+                f" max |mesh - no mesh| logits over the prefill and "
+                f"{MAX_NEW} decode steps {err:.3e} (max |logit| "
+                f"{scale:.3f}, tol {PARITY_TOL})")
+            if not bool(torch.isfinite(a[0]).all()) or err > PARITY_TOL:
+                raise AssertionError(f"[dist-serve] {cfg.name} prompt {i}: "
+                                     f"{err} > {PARITY_TOL}")
+        del model, model32, params, dp, on, off
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_distributed(card: str) -> dict[str, dict[str, int]]:
+    """Training and serving under a mesh: a (data 1, model 1) DeviceMesh
+    over an NCCL group of one rank (a FileStore rendezvous in a temporary
+    directory; no fallback to gloo or the CPU), then ``_dist_parity``,
+    ``_dist_train`` on the mesh and without one, ``_dist_experts``,
+    ``_dist_collectives`` and ``_dist_rwkv``: neither kernel runs there,
+    the mesh path trains through ``attention_core``.  Then
+    ``_dist_serve``, whose launches are counted on their own and
+    returned."""
     import tempfile
 
     import torch.distributed as dist
@@ -2315,13 +2513,20 @@ def phase_distributed(card: str) -> None:
             _dist_experts(card)
             _dist_collectives(info)
             _dist_rwkv(card, info)
+            torch.cuda.synchronize()
+            launches = {"flash": fa.launches, "wkv": ls.launches}
+            log(f"[dist] training phases {time.perf_counter() - t0:.3f} s; "
+                f"launches {launches}")
+            if launches != {"flash": 0, "wkv": 0}:
+                raise AssertionError(f"[dist] the mesh's training launched "
+                                     f"{launches}")
+            t1 = time.perf_counter()
+            serve = _dist_serve(card, info)
         finally:
             dist.destroy_process_group()
-    torch.cuda.synchronize()
-    launches = {"flash": fa.launches, "wkv": ls.launches}
-    log(f"[dist] phase {time.perf_counter() - t0:.3f} s; launches {launches}")
-    if launches != {"flash": 0, "wkv": 0}:
-        raise AssertionError(f"[dist] the mesh path launched {launches}")
+    log(f"[dist] serving {time.perf_counter() - t1:.3f} s, launches {serve}; "
+        f"phase {time.perf_counter() - t0:.3f} s")
+    return serve
 
 
 def _claims(device: str) -> dict:
@@ -2447,8 +2652,8 @@ def phase_dryrun(card: str) -> None:
     ``FlopCounterMode`` over one real step against ``flops.step_flops``,
     within DRY_BAND; (b) the predicted argument bytes against the bytes of
     the parameters, AdamW state and batch the card holds, equal; (c) the
-    roofline's step time beside the measured step wall (printed); (d) one
-    cell of the 32x8 H100 mesh on a fake process group, in a child."""
+    roofline's step time beside the measured step wall (printed).  The
+    cells of the H100 meshes, (d) and (e), run in ``phase_host``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
@@ -2524,20 +2729,131 @@ def phase_dryrun(card: str) -> None:
     del params, state, batch, b, model, step
     torch.cuda.empty_cache()
 
-    t = time.perf_counter()
-    cell = _dry_cell(*DRY_CELL, timeout=900)
-    roof = cell["roofline"]
-    log(f"[dryrun] (d) {' x '.join(DRY_CELL)} on a fake group of "
-        f"{cell['n_chips']} ranks, torch {torch.__version__}: fake step "
-        f"{cell['compile_s']} s, the child {time.perf_counter() - t:.1f} s; "
-        f"argument bytes a rank {cell['memory_analysis']['argument_size_in_bytes']:.0f}"
-        f" (fits 80 GB: {cell['fits_hbm']}); roofline {json.dumps(roof)}; "
-        f"collective bytes a rank {json.dumps(cell['collective_bytes'])}; "
-        f"ops {json.dumps(cell['collective_ops'])}")
     log(f"[dryrun] phase {time.perf_counter() - t0:.3f} s; launches "
         f"{fa.launches} flash, {ls.launches} WKV")
     if (fa.launches, ls.launches) != (0, 0):
         raise AssertionError("[dryrun] the dry-run path launched a kernel")
+
+
+def _start_orch_benches(out: Path) -> dict:
+    """The orchestration benchmarks' twins (``benchmarks/torch_*.py``), each
+    ``--smoke`` in a child, the crawl assets' tensor work on the card
+    (``--device cuda``), each writing ``out/<twin>.json``."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"),
+                                                        str(ROOT)])}
+    return {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "benchmarks" / f"{name}.py"), "--smoke",
+         "--out", str(out / f"{name}.json"),
+         *(["--device", "cuda"] if name in ORCH_CRAWL else [])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=ROOT) for name in ORCH_BENCHES}
+
+
+def _dry_cells_check(cells: list[dict], t: float) -> None:
+    """(d) the training cell DRY_CELL and (e) the serving cells
+    DRY_SERVE_CELLS, each ``ok`` with its argument bytes a rank under the
+    card's 80 GB."""
+    cell = cells[0]
+    log(f"[dryrun] (d) {' x '.join(DRY_CELL)} on a fake group of "
+        f"{cell['n_chips']} ranks, torch {torch.__version__}: fake step "
+        f"{cell['compile_s']} s; argument bytes a rank "
+        f"{cell['memory_analysis']['argument_size_in_bytes']:.0f} (fits 80 "
+        f"GB: {cell['fits_hbm']}); roofline {json.dumps(cell['roofline'])}; "
+        f"collective bytes a rank {json.dumps(cell['collective_bytes'])}; "
+        f"ops {json.dumps(cell['collective_ops'])}")
+    for (arch, shape, mesh), cell in zip(DRY_SERVE_CELLS, cells[1:]):
+        nbytes = cell["memory_analysis"]["argument_size_in_bytes"]
+        log(f"[dryrun] (e) {arch} x {shape} x {mesh} on a fake group of "
+            f"{cell['n_chips']} ranks: {cell['status']}, fake step "
+            f"{cell['compile_s']} s; argument bytes a rank {nbytes:.0f} "
+            f"(fits 80 GB: {cell['fits_hbm']}); roofline "
+            f"{json.dumps(cell['roofline'])}; collective bytes a rank "
+            f"{json.dumps(cell['collective_bytes'])}")
+    for cell in cells:
+        if not cell["fits_hbm"]:
+            raise AssertionError(
+                f"[dryrun] {cell['arch']} x {cell['shape']}: "
+                f"{cell['memory_analysis']['argument_size_in_bytes']} "
+                "argument bytes a rank")
+    log(f"[dryrun] (d), (e) {len(cells)} cells ok, "
+        f"{time.perf_counter() - t:.1f} s into the host phase")
+
+
+def _orch_benches_check(procs: dict, out: Path, card: str) -> None:
+    """Each twin's run, its numbers, then each unchanged
+    ``check_*_regression.py`` gate on its output against
+    ``benchmarks/baselines/torch_*_baseline.json``."""
+    for name, p in procs.items():
+        text, _ = p.communicate(timeout=900)
+        if p.returncode != 0:
+            raise AssertionError(f"[orch-bench] {name} failed: {text[-2000:]}")
+    res = {n: json.loads((out / f"{n}.json").read_text())
+           for n in ORCH_BENCHES}
+    pvg = res["torch_planner_vs_greedy"]["summary"]
+    scale = res["torch_planner_scale"]["shapes"]
+    store = res["torch_store_cache"]
+    rec = res["torch_recovery_bench"]
+    drift = res["torch_adaptive_drift"]["levels"]
+    log(f"[orch-bench] planner vs greedy: {json.dumps(pvg)}")
+    for shape, cells in scale.items():
+        c = cells["1000"]
+        log(f"[orch-bench] planner scale {shape} @ 1000 tasks: new "
+            f"{c['new']['plan_time_s']} s, legacy "
+            f"{c['legacy']['plan_time_s']} s ({c['speedup']}x), cost_ok "
+            f"{c['cost_ok']}, makespan_ok {c['makespan_ok']}")
+    log(f"[orch-bench] store: cold {store['cold']['wall_s']} s, warm "
+        f"{store['warm']['wall_s']} s ({store['warm_speedup']}x), backfill "
+        f"{store['backfill']['tasks_executed']} tasks, cutoff "
+        f"{store['cutoff']['tasks_executed']}")
+    log(f"[orch-bench] recovery: journaling overhead "
+        f"{rec['overhead']['overhead_frac']} ({rec['overhead']['plain_s']} /"
+        f" {rec['overhead']['journaled_s']} s), rework fractions "
+        f"{ {k: v['rework_fraction'] for k, v in rec['kills'].items()} }")
+    log(f"[orch-bench] drift: makespan / cost reductions "
+        f"{ {k: (v['makespan_reduction'], v['cost_reduction']) for k, v in drift.items()} }")
+    for name, gate in ORCH_BENCHES.items():
+        if gate is None:
+            continue
+        checks = res[name].get("checks", {})
+        r = subprocess.run(
+            [sys.executable,
+             str(ROOT / "benchmarks" / f"check_{gate[0]}_regression.py"),
+             "--current", str(out / f"{name}.json"), "--baseline",
+             str(ROOT / "benchmarks" / "baselines"
+                 / f"{gate[1]}_baseline.json")],
+            capture_output=True, text=True, timeout=120, cwd=ROOT)
+        log(f"[orch-bench] {name}: {sum(checks.values())} of {len(checks)} "
+            f"checks; check_{gate[0]}_regression.py rc {r.returncode}: "
+            f"{(r.stdout + r.stderr).strip().splitlines()[-1]}")
+        if r.returncode != 0:
+            raise AssertionError(f"[orch-bench] {name} fails its gate: "
+                                 f"{r.stdout}{r.stderr}")
+    log(f"[orch-bench] the twins' gates passed ({card})")
+
+
+def phase_host(card: str) -> None:
+    """The host's own work in children: first the orchestration benchmarks'
+    twins (ORCH_BENCHES, the crawl on the card) with nothing else beside
+    them, and their gates, since two of the recovery benchmark's checks
+    read its timing (the journaling overhead, a wall-time ratio, and what a
+    crash finds in flight, its threads' timing: beside the dry run's
+    children on an eight-core host the latter failed once).  Then the dry
+    run's cells of the 32x8 H100 mesh at once, each on a fake process
+    group: (d) DRY_CELL, the whole sharded train path at full width, and
+    (e) the serving cells DRY_SERVE_CELLS; and the cells' checks."""
+    out = ROOT / "build" / "orch_benches"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = _start_orch_benches(out)
+    _orch_benches_check(procs, out, card)
+    t1 = time.perf_counter()
+    every = (DRY_CELL,) + DRY_SERVE_CELLS
+    with ThreadPoolExecutor(len(every)) as ex:
+        cells = list(ex.map(lambda c: _dry_cell(*c, timeout=900), every))
+    _dry_cells_check(cells, t0)
+    log(f"[host] phase {time.perf_counter() - t0:.1f} s: {len(procs)} twins "
+        f"alone {t1 - t0:.1f} s, then {len(cells)} dry-run cells at once "
+        f"{time.perf_counter() - t1:.1f} s")
 
 
 def main() -> None:
@@ -2612,9 +2928,12 @@ def main() -> None:
         flash_launches[f"train {arch}"] = train_launches["flash"]
         wkv_launches[f"train {arch}"] = train_launches["wkv"]
     phase_orchestrator(card)
-    phase_distributed(card)
+    serve = phase_distributed(card)
+    flash_launches.update(serve["flash"])
+    wkv_launches.update(serve["wkv"])
     phase_paper_claims(card)
     phase_dryrun(card)
+    phase_host(card)
 
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,

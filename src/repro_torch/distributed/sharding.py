@@ -338,6 +338,51 @@ def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
                      redistribute_inputs=True)(*ops)
 
 
+def embedding(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(idx, table)``; when ``table`` is a DTensor, a
+    vocab-parallel lookup on local shards: each rank keeps its block of
+    rows (where a mesh dim splits the vocab) and gathers the rest of the
+    table, reads the indices of its own block (whole over the vocab's mesh
+    dims, as laid out elsewhere) and writes zeros for the others, and the
+    partial lookups are summed.  DTensor's own rule fails where the indices
+    are whole over a mesh dim that splits the vocab (a decode step's
+    tokens): it gathers the rows before applying a mask laid out for the
+    local ones.  The table's local gradient is a partial sum over every
+    mesh dim that splits the indices."""
+    import torch.nn.functional as F
+
+    if not is_dtensor(table):
+        return F.embedding(idx, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    idx = replicate_like(idx, table)
+    vocab = [isinstance(p, Shard) and p.dim % 2 == 0 for p in table.placements]
+    t_pl = [Shard(0) if v else Replicate() for v in vocab]
+    i_pl = [Replicate() if v else p for v, p in zip(vocab, idx.placements)]
+    out_pl = [Partial() if v else p for v, p in zip(vocab, i_pl)]
+    grad_pl = [Shard(0) if v else Partial() if isinstance(p, Shard)
+               else Replicate() for v, p in zip(vocab, i_pl)]
+    rows = table.shape[0]
+
+    def local(i, t):
+        lo, block = 0, rows
+        for d, v in enumerate(vocab):
+            if v:
+                block //= mesh.size(d)
+                lo += mesh.get_coordinate()[d] * block
+        here = (i >= lo) & (i < lo + block)
+        out = F.embedding(torch.where(here, i - lo, 0), t)
+        return out * here[..., None].to(out.dtype)
+
+    out = local_map(local, out_placements=out_pl, in_placements=(i_pl, t_pl),
+                    in_grad_placements=(i_pl, grad_pl), device_mesh=mesh,
+                    redistribute_inputs=True)(idx, table)
+    return out.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                   else p for p in out.placements])
+
+
 _LETTERS = "abcdefghijklmnopqrstuvwxyz"
 
 

@@ -27,6 +27,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+def any_dtensor(*tensors) -> bool:
+    """Whether any argument is a DTensor: the kernels read raw pointers of
+    plain tensors, which a DTensor's global view does not give."""
+    import torch.distributed as dist
+
+    if not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def misaligned(tensors, n: int = 16) -> bool:
+    """Whether a tensor's data does not start on an ``n``-byte boundary.  A
+    fake tensor (the dry run's) has no data and passes."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return any(not is_fake(t) and t.data_ptr() % n for t in tensors)
+
+
 def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 

@@ -215,6 +215,10 @@ def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _check(q, k, v, residual):
+    if build.any_dtensor(q, k, v, residual):
+        raise TypeError("flash_attention takes plain tensors, not DTensors: "
+                        "under a mesh call it on each rank's local shards "
+                        "(models/attention.py::flash)")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes (B, S, H, D) tensors")
     B, Sq, Hq, D = q.shape
@@ -237,7 +241,7 @@ def _check(q, k, v, residual):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention takes contiguous tensors")
     if q.dtype == torch.bfloat16:  # the tensor-core bodies' 16-byte tile loads
-        if D % 16 or any(t.data_ptr() % 16 for t in tensors):
+        if D % 16 or build.misaligned(tensors):
             raise ValueError(f"bf16 flash_attention needs D % 16 == 0 (D={D}) "
                              "and 16-byte aligned tensors")
     if residual is not None and residual.shape != (B, Sq, Hq, Dv):

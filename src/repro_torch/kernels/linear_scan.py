@@ -66,6 +66,10 @@ def scratch_floats(B: int, S: int, H: int, N: int) -> int:
 
 
 def _check(r, k, v, log_w, u, s0):
+    if build.any_dtensor(r, k, v, log_w, u, s0):
+        raise TypeError("linear_scan takes plain tensors, not DTensors: under "
+                        "a mesh call it on each rank's local shards "
+                        "(models/recurrent.py::_local)")
     if any(t.ndim != 4 for t in (r, k, v, log_w)):
         raise ValueError("linear_scan takes (B, S, H, N) r, k, v and log_w")
     B, S, H, N = r.shape
@@ -86,7 +90,7 @@ def _check(r, k, v, log_w, u, s0):
         raise ValueError("inputs must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("linear_scan takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in tensors):  # the kernel's 16-byte copies
+    if build.misaligned(tensors):  # the kernel's 16-byte copies
         raise ValueError("linear_scan needs 16-byte aligned tensors")
 
 

@@ -28,10 +28,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed._functional_collectives as funcol
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, current_mesh_info,
-                                              einsum, shard_map)
+                                              einsum, is_dtensor,
+                                              replicate_like, shard_map)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (Param, apply_rope, dense_init,
                                        torch_dtype)
@@ -122,10 +125,8 @@ def attention_core(
     window: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    B, Sq, Hq, Dk = q.shape
-    Hkv = k.shape[2]
-    Dv = v.shape[-1]
-    G = Hq // Hkv
+    Sq, Hq, Dk = q.shape[1:]
+    G = Hq // k.shape[2]
     scale = scale if scale is not None else Dk ** -0.5
 
     # Under a mesh whose model axis the head count does not divide, q is
@@ -149,14 +150,95 @@ def attention_core(
 
     # decode (Sq == 1): grouped product against the cache -- no repeat, so
     # cache reads stay 1/G of the expanded cost
-    qg = q.reshape(B, Sq, Hkv, G, Dk)
-    s = einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    if is_dtensor(k):
+        return _decode_on_shards(q, k, v, pos_q, pos_k, causal=causal,
+                                 window=window, scale=scale)
+    return _decode(q, k, v, pos_q, pos_k, causal=causal, window=window,
+                   scale=scale)
+
+
+def _decode(q, k, v, pos_q, pos_k, *, causal, window, scale, group=None):
+    """Decode attention on plain tensors.  ``group``: the ranks whose blocks
+    of slots split the keys (a ``kv_seq`` cache on local shards); the
+    softmax then runs over the blocks and the partial products are summed
+    in f32, one rounding to v's dtype, as without them."""
+    B, Sq, Hq, Dk = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, Dk)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     mask = _mask(pos_q[:, None, None, :, None], pos_k[:, None, None, None, :],
                  causal, window)
     s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    if group is None:
+        o = torch.einsum("bhgqk,bkhd->bqhgd",
+                         torch.softmax(s, dim=-1).to(v.dtype), v)
+    else:
+        p = blockwise_softmax(s, group).to(v.dtype)
+        o = funcol.all_reduce(torch.einsum("bhgqk,bkhd->bqhgd", p.float(),
+                                           v.float()), "sum", group).to(v.dtype)
     return o.reshape(B, Sq, Hq, Dv)
+
+
+def blockwise_softmax(s: torch.Tensor, group) -> torch.Tensor:
+    """``torch.softmax(s, -1)`` of scores whose last dim is split in blocks
+    over ``group``'s ranks (each holds its own keys' scores): the global
+    max and sum come from two all-reduces of one number a row."""
+    m = funcol.all_reduce(s.amax(-1, keepdim=True), "max", group)
+    p = torch.exp(s - m)
+    return p / funcol.all_reduce(p.sum(-1, keepdim=True), "sum", group)
+
+
+def _split(spec: tuple, dim: int) -> bool:
+    return len(spec) > dim and spec[dim] is not None
+
+
+def _model_rank(info) -> int:
+    return info.mesh.get_local_rank("model") if info.axis_size("model") > 1 \
+        else 0
+
+
+def _kv_of_local_heads(k, v, first: int, hq: int, group: int):
+    """The KV heads that q heads ``first .. first + hq - 1`` read, ``group``
+    q heads a KV head, from K/V holding every KV head."""
+    if hq % group and group % hq:
+        raise ValueError(f"{hq} local q heads straddle GQA groups of {group}")
+    lo, hi = first // group, (first + hq - 1) // group + 1
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
+def _decode_on_shards(q, k, v, pos_q, pos_k, *, causal, window, scale):
+    """``_decode`` over a mesh's cache, on each rank's local shards
+    (``shard_map``).  A cache split on ``kv_heads`` meets q split on
+    ``heads``: each rank attends its own heads.  A cache split on
+    ``kv_seq`` holds a block of slots a rank: q is whole there and the
+    blocks are combined across the ranks that split them.  A cache whose
+    slots do not divide the model axis is whole on every rank: q is split
+    on ``heads`` where they divide it, each rank reading the KV heads of
+    its own q heads.  The cache is never gathered."""
+    info = current_mesh_info()
+    B, Sq, Hq, _ = q.shape
+    G = Hq // k.shape[2]
+    kv_ax = cache_axes(k.shape[2])
+    k_spec = info.spec(k.shape, kv_ax)
+    by_seq = _split(k_spec, 1)
+    q_ax = ("batch", None, None if by_seq else "heads", None)
+    spec = info.spec
+    q_spec = spec(q.shape, q_ax)
+    group = info.mesh.get_group(k_spec[1]) if by_seq else None
+    m = _model_rank(info)
+
+    def local(q_l, k_l, v_l, pq, pk):
+        if _split(q_spec, 2) and not _split(k_spec, 2):
+            k_l, v_l = _kv_of_local_heads(k_l, v_l, m * q_l.shape[2],
+                                          q_l.shape[2], G)
+        return _decode(q_l, k_l, v_l, pq, pk, causal=causal, window=window,
+                       scale=scale, group=group)
+
+    return shard_map(local, in_specs=(
+        q_spec, k_spec, spec(v.shape, kv_ax),
+        spec(pos_q.shape, ("batch", None)),
+        spec(pos_k.shape, ("batch", kv_ax[1]))),
+        out_specs=spec((B, Sq, Hq, v.shape[-1]), q_ax))(q, k, v, pos_q, pos_k)
 
 
 def _attention_expanded(q, k, v, pos_q, pos_k, *, causal, window, scale):
@@ -281,21 +363,109 @@ def kv_cache_specs(batch: int, size: int, n_kv: int, dk: int, dv: int,
     }
 
 
+def _slot_block(leaf: torch.Tensor) -> int:
+    """The first global slot of this rank's block of a DTensor cache leaf's
+    slot dim (dim 1): 0 unless a mesh dim splits it (a ``kv_seq`` cache),
+    each splitting mesh dim taking its blocks in order, outer first."""
+    from torch.distributed.tensor import Shard
+
+    mesh, coord = leaf.device_mesh, leaf.device_mesh.get_coordinate()
+    block, lo = leaf.shape[1], 0
+    for i, p in enumerate(leaf.placements):
+        if isinstance(p, Shard) and p.dim % leaf.ndim == 1:
+            block //= mesh.size(i)
+            lo += coord[i] * block
+    return lo
+
+
+def _local_write(cache: dict, new: dict[str, torch.Tensor],
+                 pos: torch.Tensor, write) -> dict:
+    """``write(leaves, new, pos, lo, size)`` on plain tensors: off the mesh
+    the cache itself (``lo`` 0); on it each rank's local shards, written in
+    place.  There ``new`` and ``pos`` are laid out as their cache leaves
+    with the slot dim whole (the cache, the new rows and the positions
+    share the batch split; a ``kv_seq`` cache's rank receives every new
+    row and keeps those of its own slots ``[lo, lo + its block)``).  The
+    cache is never gathered."""
+    size = cache["pos"].shape[1]
+    if not is_dtensor(cache["pos"]):
+        write(cache, new, pos, 0, size)
+        return cache
+    from torch.distributed.tensor import Replicate, Shard
+
+    ref = cache["pos"]
+
+    def whole_slots(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        pl = [Replicate() if isinstance(p, Shard) and p.dim % like.ndim == 1
+              else p for p in like.placements]
+        return replicate_like(t, ref).redistribute(ref.device_mesh,
+                                                   pl).to_local()
+
+    leaves = {name: cache[name].to_local() for name in [*new, "pos"]}
+    write(leaves, {name: whole_slots(t, cache[name]) for name, t in new.items()},
+          whole_slots(pos, ref), _slot_block(ref), size)
+    return cache
+
+
+def _prefill_write(leaves: dict, new: dict, pos: torch.Tensor, lo: int,
+                   size: int) -> None:
+    n = leaves["pos"].shape[1]
+    if pos.shape[1] > size:
+        new = {name: t[:, -size:] for name, t in new.items()}
+        pos = pos[:, -size:]
+    slots = (pos % size).long()  # floor-mod: padded rows carry pos < 0
+    B, S = pos.shape
+    b_idx = torch.arange(B, device=pos.device)[:, None]
+    rows = {**new, "pos": pos}
+    if n == size:  # every slot is here
+        for name, t in rows.items():
+            leaves[name][b_idx, slots] = t.to(leaves[name].dtype)
+        return
+    # a block of a kv_seq cache: a row whose slot lies elsewhere writes
+    # local slot 0 with the value slot 0 receives anyway (its own new row,
+    # or what it holds), so no two writes of a slot differ
+    here = (slots >= lo) & (slots < lo + n)
+    tok = torch.arange(S, device=pos.device).expand(B, S)
+    writer = torch.full((B, n + 1), -1, dtype=torch.long, device=pos.device)
+    writer.scatter_(1, torch.where(here, slots - lo, n), tok)
+    src = torch.where(here, tok, writer[:, :1])
+    dest = torch.where(here, slots - lo, 0)
+    for name, t in rows.items():
+        leaf = leaves[name]
+        shape = (B, S) + t.shape[2:]
+        idx = src.clamp(min=0).reshape((B, S) + (1,) * (t.ndim - 2))
+        val = t.gather(1, idx.expand(shape)).to(leaf.dtype)
+        keep = (src >= 0).reshape(idx.shape)
+        leaf[b_idx, dest] = torch.where(keep, val, leaf[:, :1].expand(shape))
+
+
 def prefill_cache(cache: dict, new: dict[str, torch.Tensor],
                   pos: torch.Tensor) -> dict:
     """Write a full prefix into a (possibly ring) cache, in place: each leaf
     of ``new`` ((B, S, ...), e.g. ``k`` and ``v``, or MLA's ``ckv`` and
     ``kr``) and ``pos`` (B, S) at slots ``pos % size``.  For ring caches
-    only the last ``size`` tokens are written (unique slots)."""
-    size = cache["pos"].shape[1]
-    if pos.shape[1] > size:
-        new = {name: t[:, -size:] for name, t in new.items()}
-        pos = pos[:, -size:]
-    slots = (pos % size).long()  # floor-mod: padded rows carry pos < 0
-    b_idx = torch.arange(pos.shape[0], device=pos.device)[:, None]
-    for name, t in {**new, "pos": pos}.items():
-        cache[name][b_idx, slots] = t.to(cache[name].dtype)
-    return cache
+    only the last ``size`` tokens are written (unique slots).  Under a mesh
+    each rank writes its own shards (``_local_write``)."""
+    return _local_write(cache, new, pos, _prefill_write)
+
+
+def _append_write(leaves: dict, new: dict, pos: torch.Tensor, lo: int,
+                  size: int) -> None:
+    n = leaves["pos"].shape[1]
+    B = pos.shape[0]
+    valid = pos >= 0
+    slots = pos % size
+    if n < size:  # a block of a kv_seq cache: only its own slots
+        valid = valid & (slots >= lo) & (slots < lo + n)
+        slots = slots - lo
+    slots = torch.where(valid, slots, 0).long()
+    b_idx = torch.arange(B, device=pos.device)
+    rows = {name: t[:, 0] for name, t in new.items()}
+    for name, t in {**rows, "pos": pos}.items():
+        leaf = leaves[name]
+        cur = leaf[b_idx, slots]
+        keep = valid.view((B,) + (1,) * (cur.ndim - 1))
+        leaf[b_idx, slots] = torch.where(keep, t.to(leaf.dtype), cur)
 
 
 def append_cache(cache: dict, new: dict[str, torch.Tensor],
@@ -306,19 +476,10 @@ def append_cache(cache: dict, new: dict[str, torch.Tensor],
     pos < 0 marks an inactive slot (e.g. mid-chunk-prefill in the paged
     engine); JAX sends its write out of bounds, where it is dropped.  Here
     the row rewrites what its slot 0 already holds: each batch row writes
-    only its own row, so no two writes collide."""
-    size = cache["pos"].shape[1]
-    B = pos.shape[0]
-    valid = pos >= 0
-    slots = torch.where(valid, pos % size, 0).long()
-    b_idx = torch.arange(B, device=pos.device)
-    rows = {name: t[:, 0] for name, t in new.items()}
-    for name, t in {**rows, "pos": pos}.items():
-        leaf = cache[name]
-        cur = leaf[b_idx, slots]
-        keep = valid.view((B,) + (1,) * (cur.ndim - 1))
-        leaf[b_idx, slots] = torch.where(keep, t.to(leaf.dtype), cur)
-    return cache
+    only its own row, so no two writes collide.  Under a mesh each rank
+    writes its own shards, and a ``kv_seq`` block treats a row whose slot
+    lies in another rank's block as inactive."""
+    return _local_write(cache, new, pos, _append_write)
 
 
 # ---------------------------------------------------------------------------
@@ -389,10 +550,56 @@ def init_attention(gen: torch.Generator | None, cfg: ModelConfig, *,
     }
 
 
-def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, window: int = 0) -> torch.Tensor:
-    return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=causal, window=window)
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool, window: int = 0) -> torch.Tensor:
+    """Attention through the flash kernel at contiguous positions, at the
+    scale D^-0.5.  A head dim that is not a multiple of 16 (MLA's smoke
+    configs: 16 + 8) is zero-padded in q and k for the bf16 bodies'
+    16-element row loads: the padded dims add exact zeros to every score.
+
+    Under a mesh the kernel runs in ``shard_map`` on each rank's local
+    (batch, heads) shard, plain tensors: q split on ``heads`` where the
+    model axis divides them, K/V on ``kv_heads`` where it divides those,
+    else whole on every rank, each rank then reading the KV heads of its
+    own q heads (MQA: the one KV head).  Where the heads do not divide the
+    model axis q is split on ``seq_act`` instead, K/V are whole, and each
+    rank's rows start at ``q_offset`` = its block's first position, which
+    the causal and window masks read."""
+    scale = q.shape[-1] ** -0.5
+
+    def call(q, k, v, q_offset=0):
+        pad = -q.shape[-1] % 16
+        if pad:
+            q, k = F.pad(q, (0, pad)), F.pad(k, (0, pad))
+        return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window, scale=scale,
+                                    q_offset=q_offset)
+
+    info = current_mesh_info()
+    if info is None or not is_dtensor(q):
+        return call(q, k, v)
+    B, Sq, Hq, _ = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    heads = kv_heads_shardable(Hq)
+    q_ax = ("batch", None, "heads", None) if heads else \
+        ("batch", "seq_act", None, None)
+    kv_ax = ("batch", None, "kv_heads" if heads and kv_heads_shardable(Hkv)
+             else None, None)
+    q_spec, k_spec, v_spec = (info.spec(t.shape, ax) for t, ax in
+                              ((q, q_ax), (k, kv_ax), (v, kv_ax)))
+    m = _model_rank(info)
+
+    def local(q_l, k_l, v_l):
+        if _split(q_spec, 2) and not _split(k_spec, 2):
+            k_l, v_l = _kv_of_local_heads(k_l, v_l, m * q_l.shape[2],
+                                          q_l.shape[2], G)
+        return call(q_l, k_l, v_l, m * q_l.shape[1] if _split(q_spec, 1)
+                    else 0)
+
+    return shard_map(local, in_specs=(q_spec, k_spec, v_spec),
+                     out_specs=info.spec((B, Sq, Hq, Dv), q_ax))(q, k, v)
 
 
 def apply_attention(
@@ -428,7 +635,7 @@ def apply_attention(
     new_cache = None
     if cache is None:  # train / encode: attend within the computed seq
         if ctx.contiguous:  # the encoder of a full prefill
-            o = _flash(q, k, v, causal=ctx.causal, window=window)
+            o = flash(q, k, v, causal=ctx.causal, window=window)
         else:
             o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
                                window=window)
@@ -459,7 +666,7 @@ def apply_attention(
     else:  # prefill: attend over the computed seq, persist into the cache
         new_cache = prefill_cache(cache, {"k": k, "v": v}, pos_q)
         if ctx.contiguous:
-            o = _flash(q, k, v, causal=ctx.causal, window=window)
+            o = flash(q, k, v, causal=ctx.causal, window=window)
         else:
             o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal,
                                window=window)
@@ -496,6 +703,6 @@ def _cross(p: dict, cdt: torch.dtype, q: torch.Tensor, ctx: ModelCtx,
         if cache is not None:  # prefill: persist cross K/V
             new_cache = prefill_cache(cache, {"k": k, "v": v}, pos_k)
     if ctx.mode == "prefill" and ctx.contiguous:
-        return _flash(q, k, v, causal=False), new_cache
+        return flash(q, k, v, causal=False), new_cache
     return attention_core(q, k.to(cdt), v.to(cdt), ctx.pos2d, pos_k,
                           causal=False, window=0), new_cache

@@ -11,30 +11,30 @@ the weight-absorbed path: scores and outputs are computed in the latent
 space, so the cache holds only ``kv_lora_rank + qk_rope_head_dim`` numbers
 per token.
 
-The latent cache is slot-dense (``"batch"`` axis) in both engines, and is
-written in place by the attention layers' ``prefill_cache`` (a prompt
-longer than the cache keeps its last tokens, ``mla.py:198``) and
+The latent cache is slot-dense (``"batch"`` axis) in both engines, laid
+out ``("batch", "kv_seq", None)`` as JAX's (under a mesh the model axis
+splits its slots), and is written in place by the attention layers'
+``prefill_cache`` (a prompt longer than the cache keeps its last tokens,
+``mla.py:198``) and
 ``append_cache`` (the decode write that JAX drops for an inactive slot,
 ``mla.py:133``, made explicit).
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+import torch.distributed._functional_collectives as funcol
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, einsum, matmul
-from repro_torch.kernels import ops as kops
+from repro_torch.distributed.sharding import (constrain, current_mesh_info,
+                                              einsum, is_dtensor, matmul,
+                                              shard_map)
 from repro_torch.models.attention import (NEG_INF, ModelCtx, append_cache,
-                                          attention_core, kv_heads_shardable,
+                                          attention_core, blockwise_softmax,
+                                          flash, kv_heads_shardable,
                                           prefill_cache)
 from repro_torch.models.layers import (Param, apply_norm, apply_rope,
                                        dense_init, torch_dtype)
 from repro_torch.utils import Spec
-
-#: the bf16 flash bodies load head dims in 16-element rows
-_FLASH_D_MULTIPLE = 16
-
 
 def init_mla(gen: torch.Generator | None, cfg: ModelConfig, *, stack: int = 0,
              device: torch.device | str = "cuda") -> dict:
@@ -110,26 +110,33 @@ def _latents(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx):
 
 
 def mla_cache_specs(batch: int, size: int, cfg: ModelConfig, dtype) -> dict:
-    ax = ("batch", None, None)
+    ax = ("batch", "kv_seq", None)
     return {
         "ckv": Spec((batch, size, cfg.kv_lora_rank), dtype, ax),
         "kr": Spec((batch, size, cfg.qk_rope_head_dim), dtype, ax),
-        "pos": Spec((batch, size), torch.int32, ("batch", None)),
+        "pos": Spec((batch, size), torch.int32, ("batch", "kv_seq")),
     }
 
 
-def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> torch.Tensor:
-    """Full prefill through the flash kernel at the softmax scale
-    (nope + rope)^-0.5.  A head dim that is not a multiple of 16 (the smoke
-    configs' 16 + 8) is zero-padded for the bf16 bodies' row loads: the
-    padded dims add exact zeros to every score."""
-    D = q.shape[-1]
-    pad = -D % _FLASH_D_MULTIPLE
-    if pad:
-        q, k = F.pad(q, (0, pad)), F.pad(k, (0, pad))
-    return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=causal, scale=D ** -0.5)
+def _latent(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
+            kr: torch.Tensor, pos_q: torch.Tensor, pos_k: torch.Tensor,
+            scale: float, group=None) -> torch.Tensor:
+    """Latent-space scores, softmax and the c_kv product: (B, Q, H, L).
+    ``group``: the ranks whose blocks of slots split the keys (a
+    ``kv_seq`` cache on local shards), whose softmax and partial products
+    are combined across them."""
+    s = einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
+    s = s + einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
+    s = s * scale
+    mask = (pos_k[:, None, :] >= 0) & (pos_k[:, None, :] <= pos_q[:, :, None])
+    s = torch.where(mask[:, None], s, NEG_INF)
+    if group is None:
+        return einsum("bhqs,bsl->bqhl", torch.softmax(s, dim=-1).to(ckv.dtype),
+                      ckv)
+    w = blockwise_softmax(s, group).to(ckv.dtype)
+    return funcol.all_reduce(torch.einsum("bhqs,bsl->bqhl", w.float(),
+                                          ckv.float()), "sum", group
+                             ).to(ckv.dtype)
 
 
 def _absorbed(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
@@ -139,16 +146,31 @@ def _absorbed(p: dict, cfg: ModelConfig, q_nope: torch.Tensor,
     scores with f32 products and sums, masked with the finite NEG_INF,
     softmax in f32, weights cast to the compute dtype for the c_kv product,
     then W_uv.  q: (B, Q, H, .); ckv, kr: (B, S, .); pos_q (B, Q), pos_k
-    (B, S) -> (B, Q, H, v_head_dim)."""
+    (B, S) -> (B, Q, H, v_head_dim).  Under a mesh the latent part runs on
+    each rank's local shards, q whole and the keys in the cache's
+    ``kv_seq`` blocks where the mesh splits them: the cache is never
+    gathered."""
     cdt = torch_dtype(cfg.compute_dtype)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     q_lat = einsum("bqhn,lhn->bqhl", q_nope, p["w_uk"].to(cdt))
-    s = einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
-    s = s + einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
-    s = s * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    mask = (pos_k[:, None, :] >= 0) & (pos_k[:, None, :] <= pos_q[:, :, None])
-    s = torch.where(mask[:, None], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o_lat = einsum("bhqs,bsl->bqhl", w.to(cdt), ckv)
+    info = current_mesh_info()
+    if info is None or not is_dtensor(ckv):
+        o_lat = _latent(q_lat, q_rope, ckv, kr, pos_q, pos_k, scale)
+    else:
+        lat = ("batch", "kv_seq", None)
+        c_spec = info.spec(ckv.shape, lat)
+        group = (info.mesh.get_group(c_spec[1])
+                 if len(c_spec) > 1 and c_spec[1] is not None else None)
+        q_ax = ("batch", None, None, None)
+        spec = info.spec
+        o_lat = shard_map(
+            lambda *a: _latent(*a, scale, group),
+            in_specs=(spec(q_lat.shape, q_ax), spec(q_rope.shape, q_ax),
+                      c_spec, spec(kr.shape, lat),
+                      spec(pos_q.shape, ("batch", None)),
+                      spec(pos_k.shape, lat[:2])),
+            out_specs=spec(q_lat.shape, q_ax))(q_lat, q_rope, ckv, kr, pos_q,
+                                               pos_k)
     return einsum("bqhl,lhv->bqhv", o_lat, p["w_uv"].to(cdt))
 
 
@@ -196,7 +218,7 @@ def apply_mla(p: dict, cfg: ModelConfig, x: torch.Tensor, ctx: ModelCtx,
         if cache is not None:  # prefill: persist the compressed latents
             prefill_cache(cache, {"ckv": ckv_t, "kr": kr_t}, pos_q)
         if ctx.mode == "prefill" and ctx.contiguous:
-            o = _flash(q, k, v, ctx.causal)
+            o = flash(q, k, v, causal=ctx.causal)
         else:
             o = attention_core(q, k, v, pos_q, pos_q, causal=ctx.causal)
     o = constrain(o, "batch", None if heads_tp else "seq_act",

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, matmul, replicate
+from repro_torch.distributed.sharding import (constrain, embedding, matmul,
+                                              replicate)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import ModelCtx
 from repro_torch.models.layers import (Param, apply_norm, embed_init,
@@ -168,7 +169,7 @@ class LanguageModel:
         else:
             # a lookup, not indexing: DTensor shards embedding's backward
             # (torch 2.11's index_put rule fails on a sharded index)
-            x = F.embedding(tokens.long(), params["embed"]).to(cdt)
+            x = embedding(tokens.long(), params["embed"]).to(cdt)
         if cfg.emb_scale:
             x = x * math.sqrt(cfg.d_model)
         if cfg.embed_norm:
@@ -355,7 +356,8 @@ class LanguageModel:
         tokens = batch["tokens"]
         B, C = tokens.shape
         pos = (start[:, None].to(torch.int32)
-               + torch.arange(C, dtype=torch.int32, device=tokens.device))
+               + replicate(torch.arange(C, dtype=torch.int32,
+                                        device=self.device)))
         if self.cfg.pos_type == "mrope":
             pos = pos.expand(3, B, C)
         ctx = self._ctx(params, batch, False, mode="chunk_prefill",

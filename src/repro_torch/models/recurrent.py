@@ -136,6 +136,14 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
+def _conv_history(u: torch.Tensor, cw: int) -> torch.Tensor:
+    """The last cw-1 rows of the pre-conv history; a prompt shorter than
+    that is left-padded with zeros, the conv's implicit padding (JAX keeps
+    the short history, which no (B, cw-1, w) slot can hold)."""
+    tail = u[:, -(cw - 1):]
+    return F.pad(tail, (0, 0, cw - 1 - tail.shape[1], 0))
+
+
 def _rg_gates(p: dict, cfg: ModelConfig, u: torch.Tensor):
     """(log_a, gated), f32, from ``u`` in the compute dtype: the gate
     products run in that dtype, ``b_a``, ``b_i`` and ``lam`` are read in
@@ -218,11 +226,9 @@ def apply_rglru(p: dict, cfg: ModelConfig, x: torch.Tensor,
         h = h + a_cum * state["h"][:, None, :]
 
     if state is not None and mode in ("prefill", "chunk_prefill"):
-        # the last cw-1 rows of the pre-conv history; a prompt shorter than
-        # that is left-padded with zeros, the conv's implicit padding (JAX
-        # keeps the short history, which no (B, cw-1, w) slot can hold)
-        tail = u_hist[:, -(cw - 1):]
-        state["conv"].copy_(F.pad(tail, (0, 0, cw - 1 - tail.shape[1], 0)))
+        B, _, w = u_hist.shape
+        state["conv"].copy_(_local(functools.partial(_conv_history, cw=cw),
+                                   (u_hist,), (ax,), [((B, cw - 1, w), ax)]))
         state["h"].copy_(h[:, -1])
     out = matmul(y_gate * h.to(cdt), p["w_o"].to(cdt))
     return constrain(out, "batch", None, "embed_fsdp"), state

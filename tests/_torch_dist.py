@@ -165,3 +165,91 @@ def sharded_vs_unsharded(model, params, batch, info, which="total_loss",
             "calls": np.array([moe.PATH_CALLS["dense"],
                                moe.PATH_CALLS["shard_map"]]),
             "device": np.array(dl[0].device.type)}
+
+
+def serve_sharded_vs_unsharded(model, params, batch, info, follow,
+                               max_len, layouts=None, chunk=0) -> dict:
+    """``prefill`` of ``batch`` then one ``decode_step`` per column of
+    ``follow`` ((B, steps) tokens, given so that both runs decode the same
+    tokens), unsharded and then on ``info``'s mesh: parameters laid out by
+    ``param_axes``, the cache by its specs' axes (taken under the mesh, as
+    the dry run lays it out), each batch key by its entry in ``layouts``,
+    else ``("batch", "seq_act")``, decode tokens ``("batch", None)`` and
+    positions ``("batch",)`` (``launch/specs.py``).  ``chunk`` > 0 prefills
+    all but the last ``chunk`` tokens, then those through
+    ``prefill_chunk`` (its start ``("batch",)``).  The mesh side runs under
+    ``no_strided_views``.  Returns arrays for ``emit``: ``logits``
+    (unsharded, sharded), (2, calls, B, vocab), one a call in order;
+    ``calls`` (the kernel wrappers' calls on the mesh: flash, linear_scan),
+    ``launches`` (the kernels' launch counts there) and ``local`` (whether
+    every wrapper call on the mesh got plain tensors)."""
+    import torch
+
+    from repro_torch.distributed.sharding import (distribute_tree, is_dtensor,
+                                                  use_mesh_info)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops as kops
+    from repro_torch.utils import tree_map
+
+    B, S = batch["tokens"].shape
+    enc_len = batch["frames"].shape[1] if "frames" in batch else 0
+    head = {k: v[:, :S - chunk] if k == "tokens" else v
+            for k, v in batch.items()}
+
+    def run(p, cache, place):
+        def lay(b):
+            return {k: place(v, (layouts or {}).get(k, ("batch", "seq_act")))
+                    for k, v in b.items()}
+
+        logits, cache = model.prefill(p, lay(head), cache)
+        out = [logits]
+        if chunk:
+            start = place(torch.full((B,), S - chunk, dtype=torch.int32,
+                                     device=follow.device), ("batch",))
+            logits, cache = model.prefill_chunk(
+                p, lay({**batch, "tokens": batch["tokens"][:, S - chunk:]}),
+                cache, start)
+            out.append(logits)
+        for t in range(follow.shape[1]):
+            tok = place(follow[:, t:t + 1], ("batch", None))
+            pos = place(torch.full((B,), S + t, dtype=torch.int32,
+                                   device=tok.device), ("batch",))
+            logits, cache = model.decode_step(p, tok, cache, pos)
+            out.append(logits)
+        return out
+
+    with torch.no_grad():
+        ref = run(params, model.init_cache(B, max_len, enc_len,
+                                           dtype=torch.float32),
+                  lambda t, ax: t)
+    calls = {"flash": 0, "scan": 0}
+    plain = []
+    wrapped = {"flash": kops.flash_attention, "scan": kops.linear_scan}
+
+    def counting(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            plain.append(not any(is_dtensor(t) for t in a))
+            return wrapped[name](*a, **kw)
+        return call
+
+    with use_mesh_info(info), no_strided_views(), torch.no_grad():
+        kops.flash_attention = counting("flash")
+        kops.linear_scan = counting("scan")
+        fa.launches = ls.launches = 0
+        try:
+            dp = distribute_tree(params, model.param_axes, info)
+            specs = model.cache_specs(B, max_len, enc_len, dtype=torch.float32)
+            cache = tree_map(lambda sp, t: info.distribute(t, sp.axes), specs,
+                             model.init_cache(B, max_len, enc_len,
+                                              dtype=torch.float32))
+            got = [t.full_tensor() for t in run(dp, cache, info.distribute)]
+        finally:
+            kops.flash_attention = wrapped["flash"]
+            kops.linear_scan = wrapped["scan"]
+    return {"logits": np.stack([torch.stack(ref).cpu().numpy(),
+                                torch.stack(got).cpu().numpy()]),
+            "calls": np.array([calls["flash"], calls["scan"]]),
+            "launches": np.array([fa.launches, ls.launches]),
+            "local": np.array(all(plain))}

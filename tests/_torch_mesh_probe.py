@@ -9,6 +9,13 @@ one the CPU tests run under).  Only ``--export-parity`` imports JAX.
         cases at a time; the loss on the mesh against the unsharded loss
         (rtol 2e-4) and every gradient against the unsharded one (1e-4 of
         its max |g|)
+    python tests/_torch_mesh_probe.py --serve [ARCH ...] [--out FILE]
+        serving (ROADMAP §3, fault 5): every smoke arch (or those named) on
+        (2, 2) and (1, 4), tests/test_torch_gpu_mesh.py's SERVE body
+        (prefill, an 8-token chunked prefill, 4 decode steps through
+        ``serve_sharded_vs_unsharded``), the logits on the mesh against the
+        unsharded run (2e-4 on the prefill, 3e-4 after), every kernel
+        wrapper call given plain local tensors
     python tests/_torch_mesh_probe.py --export-parity DIR   (needs JAX)
         tests/test_torch_distributed_train.py's parity cases -- JAX's
         weights, batches and single-device losses -- written to DIR
@@ -54,23 +61,48 @@ def _model_cases() -> tuple[str, dict]:
                    "deepseek-v2-236b": CASES["moe"]}
 
 
-def probe(names: list[str]) -> list[dict]:
+SERVE_MESHES = [(2, 2), (1, 4)]
+PREFILL_TOL, DECODE_TOL = 2e-4, 3e-4
+
+
+def _serve_check(got: dict) -> tuple[bool, dict]:
+    """The serve case's verdict: every logit within its limit of the
+    unsharded run's, in both runs, and the wrappers given local tensors."""
+    worst = {}
+    ok = bool(got["local"]) and bool(got["chunk_local"])
+    for key in ("logits", "chunk_logits"):
+        un, sh = got[key]
+        err = abs(sh - un) / (1 + abs(un))  # as assert_allclose's rtol = atol
+        worst[key] = [float(err[0].max()), float(err[1:].max())]
+        ok &= worst[key][0] <= PREFILL_TOL and worst[key][1] <= DECODE_TOL
+    return ok, worst
+
+
+def probe(names: list[str], serve: bool = False) -> list[dict]:
     from _torch_dist import run_ranks
 
     body, cases = _model_cases()
-    jobs = [(n, m) for n in (names or list(cases)) for m in MESHES]
+    if serve:
+        from test_torch_gpu_mesh import SERVE as body
+    jobs = [(n, m) for n in (names or list(cases))
+            for m in (SERVE_MESHES if serve else MESHES)]
 
     def one(name, mesh):
         d = tempfile.mkdtemp(prefix=f"{name}_{mesh[0]}x{mesh[1]}_")
         t0 = time.time()
         try:
             got = run_ranks(f"CASE = {cases[name]!r}\nMESH = {mesh!r}\n" + body,
-                            4, d, timeout=300)["case"]
+                            4, d, timeout=300)["serve" if serve else "case"]
         except AssertionError as e:
             return dict(name=name, mesh=mesh, ok=False, err=str(e)[-2500:],
                         s=round(time.time() - t0, 1))
         finally:
             shutil.rmtree(d, ignore_errors=True)
+        if serve:
+            ok, worst = _serve_check(got)
+            return dict(name=name, mesh=mesh, ok=ok, worst=worst,
+                        calls=got["calls"].tolist(),
+                        s=round(time.time() - t0, 1))
         un, sh = (float(x) for x in got["loss"])
         rel, grad = abs(sh - un) / abs(un), float(got["grad_err"].max())
         return dict(name=name, mesh=mesh, ok=rel <= LOSS_RTOL and grad < GRAD_TOL,
@@ -81,8 +113,10 @@ def probe(names: list[str]) -> list[dict]:
     with cf.ThreadPoolExecutor(2) as ex:
         for r in ex.map(lambda a: one(*a), jobs):
             out.append(r)
-            what = (f"loss rel {r['rel']:.3e}, worst gradient {r['grad_err']:.3e}"
-                    if "rel" in r else "stopped")
+            what = ("stopped" if "err" in r else
+                    f"worst logit error (prefill, later) {r['worst']}, "
+                    f"wrapper calls {r['calls']}" if "worst" in r else
+                    f"loss rel {r['rel']:.3e}, worst gradient {r['grad_err']:.3e}")
             print(f"[probe] {r['name']} {tuple(r['mesh'])}: "
                   f"{'ok' if r['ok'] else 'FAIL'}: {what} ({r['s']} s)",
                   flush=True)
@@ -147,6 +181,7 @@ def main() -> None:
     ap.add_argument("archs", nargs="*")
     ap.add_argument("--export-parity", type=Path, default=None)
     ap.add_argument("--parity", type=Path, default=None)
+    ap.add_argument("--serve", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     import torch
@@ -155,7 +190,8 @@ def main() -> None:
     if args.export_parity:
         export_parity(args.export_parity.resolve())
         return
-    rows = parity(args.parity.resolve()) if args.parity else probe(args.archs)
+    rows = (parity(args.parity.resolve()) if args.parity
+            else probe(args.archs, serve=args.serve))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(rows, indent=1))

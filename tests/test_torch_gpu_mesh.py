@@ -1,9 +1,10 @@
-"""Training under a mesh on four cards, one NCCL rank each (``gpu``-marked:
-skips with fewer than four cards; JAX-free, as the cards' machine has no
-JAX).  The CPU tests hold the same paths on gloo ranks against JAX; here the
-sharded runs are held against the port's own unsharded run on each card,
-through ``sharded_vs_unsharded``, on the (data, model) meshes (4, 1), (2, 2)
-and (1, 4).
+"""Training and serving under a mesh on four cards, one NCCL rank each
+(``gpu``-marked: skips with fewer than four cards; JAX-free, as the cards'
+machine has no JAX).  The CPU tests hold the same paths on gloo ranks
+against JAX; here the sharded runs are held against the port's own
+unsharded run on each card, through ``sharded_vs_unsharded`` (training)
+and ``serve_sharded_vs_unsharded``, on the (data, model) meshes (4, 1),
+(2, 2) and (1, 4).
 
 * deepseek-v2 smoke (MLA + MoE, ``n_experts=8``, ``d_model=64``,
   ``_SMALL_T`` 16), f32, B 4 x S 32, through ``_moe_shard_map``
@@ -19,6 +20,10 @@ the fold, which ``@`` and ``einsum`` on DTensors do; the model's products
 run on local shards instead (``sharding.einsum``), so meshes whose model
 axis is above 1 train there too (ROADMAP §3, fault 3).
 
+* Serving (ROADMAP §3, fault 5): qwen2-vl and rwkv6 smoke on (2, 2) and
+  (1, 4), prefill, a chunked prefill and 4 decode steps against the
+  unsharded run (2e-4 on the prefill logits, 3e-4 after), the flash or WKV
+  kernel launched on every rank's local shards.
 * ``quantized_sum`` (``compressed_psum``'s int8 sum) over 4 ranks against
   a numpy transcription in f32, exactly; ``pipeline_apply`` over 4 stages
   against the sequential stages, 1e-5.
@@ -69,6 +74,43 @@ emit("case", **sharded_vs_unsharded(model, params, batch,
                                     which, layouts=layouts))
 """
 
+#: serving on the mesh (ROADMAP §3, fault 5): prefill of the case's batch,
+#: an 8-token ``prefill_chunk`` run, 4 decode steps, against the unsharded
+#: run on each rank's card; every rank's kernel launches equal its wrapper
+#: calls (each rank launches on its own local shards)
+SERVE = """
+from repro_torch.models import LanguageModel
+from repro_torch.utils import tree_flatten
+import importlib
+
+mod, kw, B, S = CASE[:4]
+cfg = importlib.import_module("repro_torch.configs." + mod).smoke()
+cfg = cfg.scaled(compute_dtype="float32", **kw)
+model = LanguageModel(cfg, device=DEVICE)
+params = model.init(0)
+g = torch.Generator().manual_seed(1)
+for path, t in tree_flatten(params):  # RG-LRU's zero-init conv: a draw
+    if path.endswith("conv_w"):
+        t.copy_(0.5 * torch.randn(t.shape, generator=g).to(DEVICE))
+batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                 generator=g).to(DEVICE)}
+layouts = {}
+if cfg.enc_dec:  # whisper's frames, laid out as JAX's specs.py:34-36
+    batch["frames"] = torch.randn(B, S, cfg.d_model, generator=g).to(DEVICE)
+    layouts["frames"] = ("batch", "seq_act", None)
+follow = torch.randint(0, cfg.vocab_size, (B, 4), generator=g).to(DEVICE)
+from _torch_dist import serve_sharded_vs_unsharded
+info = small_mesh_info(MESH, device_type=DEVICE)
+got = serve_sharded_vs_unsharded(model, params, batch, info, follow, S + 8,
+                                 layouts)
+chunk = serve_sharded_vs_unsharded(model, params, batch, info, follow, S + 8,
+                                   layouts, chunk=8)
+if DEVICE == "cuda":
+    for run in (got, chunk):
+        assert list(run["launches"]) == list(run["calls"]), (RANK, run)
+emit("serve", **got, **{"chunk_" + k: v for k, v in chunk.items()})
+"""
+
 COLLECTIVES = """
 from repro_torch.distributed.collectives import quantized_sum
 from repro_torch.distributed.pipeline import pipeline_apply
@@ -111,6 +153,28 @@ def test_mesh_paths_on_four_cards(name, mesh, tmp_path):
     if name == "moe":
         assert list(got["calls"]) == [0, 2], got["calls"]
     assert got["grad_err"].max() < 1e-4, got["grad_err"]
+
+
+@pytest.mark.parametrize("mesh,name", [
+    pytest.param(mesh, name, id=f"{mesh[0]}x{mesh[1]}-{name}")
+    for mesh in ((2, 2), (1, 4)) for name in ("gqa", "rwkv")])
+def test_serve_on_four_cards(name, mesh, tmp_path):
+    """Prefill, a chunked prefill and decode on the mesh against the
+    unsharded run, each rank launching the flash (gqa) or WKV (rwkv) kernel
+    on its own local shards."""
+    got = _four_cards(f"CASE = {CASES[name]!r}\nMESH = {mesh!r}\n" + SERVE,
+                      tmp_path)["serve"]
+    for key in ("logits", "chunk_logits"):
+        unsharded, sharded = got[key]
+        np.testing.assert_allclose(sharded[0], unsharded[0], rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(sharded[1:], unsharded[1:], rtol=3e-4,
+                                   atol=3e-4)
+    kernel = 0 if name == "gqa" else 1
+    assert got["calls"][kernel] > 0 and got["calls"][1 - kernel] == 0
+    assert list(got["launches"]) == list(got["calls"])
+    assert list(got["chunk_launches"]) == list(got["chunk_calls"])
+    assert bool(got["local"]) and bool(got["chunk_local"])
 
 
 def test_collectives_on_four_cards(tmp_path):

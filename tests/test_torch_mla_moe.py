@@ -29,7 +29,7 @@ from repro.models.layers import split  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import mla as tmla  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
-from repro_torch.models.attention import ModelCtx  # noqa: E402
+from repro_torch.models.attention import ModelCtx, flash  # noqa: E402
 from repro_torch.utils import (tree_flatten, tree_leaves, tree_map,  # noqa: E402
                                tree_unflatten)
 
@@ -191,7 +191,7 @@ def test_mla_flash_pads_head_dims_off_the_kernel_grid():
         kops.flash_attention = lambda *a, **kw: seen.append(
             (a[0].shape[-1], kw["scale"])) or real(*a, **kw)
         try:
-            out = tmla._flash(q, k, v, True)
+            out = flash(q, k, v, causal=True)
         finally:
             kops.flash_attention = real
         assert seen == [(-(-D // 16) * 16, D ** -0.5)]
