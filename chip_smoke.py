@@ -10,7 +10,11 @@ back to the CPU):
 2. build    -- every CUDA kernel of the port, compiled from this checkout,
                with ptxas' registers and spill stores of each function, read
                from the log kept beside each library (the flash kernel's
-               wgmma body at D = Dv = 256 and 128 must report no spill);
+               wgmma body at D = Dv = 256, 128 and 64, at both key tiles,
+               must report no spill), those of the second tiles (128-key
+               flash bodies, 32-step WKV chunks) logged apart; then the
+               tuner's fit model (kernels/autotune.py) against the C
+               entries' shared-memory sizing of every tile, byte for byte;
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the serving paths' shapes (flash at every prompt length of the
                gemma-2b trace, and at the head dims of the model zoo), with
@@ -31,7 +35,17 @@ back to the CPU):
                Dv 128 with 128 heads (all wgmma); the
                WKV scan's chunked body at every WKV case, its step body
                checked at every case too and timed beside it at the
-               rwkv6-1.6b prefill and paged chunk-round shapes;
+               rwkv6-1.6b prefill and paged chunk-round shapes; every case
+               whose body has a second tile runs it too on the same inputs
+               (flash: 128-key tiles on the wgmma body at Dv <= 128; WKV:
+               32-step chunks), held to the case's tolerances and timed;
+3b. tuner   -- kernels/ops.py's tuned dispatch through a fresh cache file: a
+               miss times each candidate once and persists the winner, a hit
+               times nothing, an explicit tile bypasses the tuner; then in
+               children benchmarks/torch_kernel_bench.py --smoke and its
+               unchanged gate (check_kernel_regression.py against
+               benchmarks/baselines/torch_kernel_bench_baseline.json), and
+               benchmarks/torch_microbench.py;
 4. serve    -- gemma-2b at full width (18 layers, d_model 2048, vocab 256000,
                random weights from seed 0, bf16 compute) serving 6 ragged
                prompts through ``ContinuousBatcher`` (full prefill: the flash
@@ -92,7 +106,7 @@ back to the CPU):
                prefill: 24 encoder, 24 self, 24 cross) against the plain
                path, and 8 decode steps against a full prefill of the prompt
                plus those tokens; then bf16, run a (4 rows x 4 tokens) and
-               run b (1 x 224), each prefill plus 64 greedy steps, with
+               run b (1 x 224), each prefill plus 32 greedy steps, with
                flash launches read around each, wall, tokens/s, peak memory,
                greedy agreement with f32 (each row's first step that
                parts), and the first-token logits against the same bf16
@@ -107,7 +121,7 @@ back to the CPU):
                and resume
                to 12 on the card against a straight run; gemma-2b,
                h2o-danube-1.8b and granite-moe-1b-a400m at full width
-               (bf16, remat full, B 2 x S 1024, seed 0), 20 steps of
+               (bf16, remat full, B 2 x S 1024, seed 0), 10 steps of
                ``train``: finite and falling loss (and a finite, non-zero
                router loss for granite), no flash or WKV launch, the step
                wall, tokens/s, model-FLOP share (of the active parameters
@@ -140,8 +154,8 @@ back to the CPU):
                tokens, above moe._SMALL_T): the capacity path (asserted)
                on the mesh against the dense path without it, the loss to
                rtol 2e-4 and every gradient leaf to 1e-3 of its max |g|;
-               then granite at full width, bf16, remat full, 10 steps of
-               ``train(mesh_info=...)`` at capacity_factor 1.25 and 10
+               then granite at full width, bf16, remat full, 5 steps of
+               ``train(mesh_info=...)`` at capacity_factor 1.25 and 5
                without a mesh (the dense path): finite, falling loss, the
                step wall, tokens/s, peak memory, the dropped share of each
                layer's (token, slot) assignments at steps 1 and 10, the
@@ -162,14 +176,27 @@ back to the CPU):
 10b. claims, dry run -- the paper's claims with the crawl on the card,
                equal to the CPU's; the dry run's predictions for one card
                against it;
-10c. host -- in children: the five orchestration twins
-               (benchmarks/torch_*.py) --smoke at once, the crawl on the
-               card, and nothing else beside them; their unchanged
-               check_*_regression.py gates against
-               benchmarks/baselines/torch_*_baseline.json; then one
-               training cell and four serving cells of the 32x8 mesh on
-               fake process groups, all five at once;
-11. the kernels JSON line, then the card line, then the result line.
+10c. serving benchmarks -- in children: benchmarks/torch_serving_bench.py
+               --smoke at full width (gemma-2b, bf16) at the labelled depth
+               cut gemma-2b@6 (SERVE_BENCH_LAYERS) and its unchanged gate
+               (check_serving_regression.py against
+               benchmarks/baselines/torch_serving_baseline.json, taken at
+               that cut),
+               benchmarks/torch_run.py --smoke, and
+               examples/torch_serve_lm.py --width full;
+10d. host -- in children: one training cell and four serving cells of
+               the 32x8 mesh on fake process groups, all five at once,
+               started with the run (beside the build and the kernel
+               phases, which read device time) and checked here; then the
+               five orchestration twins (benchmarks/torch_*.py) --smoke at
+               once, the crawl on the card, and nothing else beside them;
+               their unchanged check_*_regression.py gates against
+               benchmarks/baselines/torch_*_baseline.json.  The runner and
+               the serving example of 10c run beside the orchestrator
+               phase 9b;
+11. the kernels JSON line (launches by phase: the main path's, then the
+    tuner's and the benchmarks' children's under their own keys), then the
+    card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository.
@@ -181,6 +208,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -305,7 +333,7 @@ PATCH_GRID, MM_TEXT = 16, 8
 # passes encoder frames): LanguageModel.prefill with frames, then greedy
 # decode_step, at its 1500 encoder frames and 448-token decoder context;
 # run a: 4 rows of a 4-token prompt, run b: one 224-token prompt
-WHISPER_ENC_LEN, WHISPER_MAX_LEN, WHISPER_STEPS = 1500, 448, 64
+WHISPER_ENC_LEN, WHISPER_MAX_LEN, WHISPER_STEPS = 1500, 448, 32
 WHISPER_RUNS = (("a", 4, 4), ("b", 1, 224))  # (run, rows, prompt tokens)
 # bf16 first-token logits, the prefill through flash against the same
 # prefill with positions given (plain everywhere), relative over the whole
@@ -318,16 +346,33 @@ CONV_SCALE = 0.5
 # beside it in the same run (``_body="mma"``)
 PREV_BODY_CASES = ("gemma_prefill", "deepseek7b_prefill")
 # kernels that must compile without spills: the flash wgmma body at
-# Dv = D = 256, 128 and 64, every instantiation of the WKV chunked body's
-# kernels
+# Dv = D = 256, 128 and 64 (at D = Dv = 128 and 64 both key tiles, 64 and
+# 128: the mangled names <D, Dv, block_k> share these prefixes), every
+# instantiation of the WKV chunked body's kernels (both chunks)
 NO_SPILL = ("flash_fwd_wgmma_kernelILi256ELi256E",
             "flash_fwd_wgmma_kernelILi128ELi128E",
             "flash_fwd_wgmma_kernelILi64ELi64E",
             "wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
+# the second tiles: flash's 128-key tiles on the wgmma body, where
+# the body has them (Dv <= 128), and the WKV chunked body's 32-step chunks
+SECOND_BLOCK_K, SECOND_CHUNK = 128, 32
+# the shapes whose tiles' shared memory the build phase holds to the tuner's
+# fit model: every (D, Dv) of the wgmma body, and the mma.sync body's of
+# the zoo; the WKV scan at every N
+FIT_SHAPES = [(d, dv) for d in (64, 128, 192, 256) for dv in (64, 128, 256)] \
+    + [(80, 80), (96, 64)]
+FIT_N = (16, 32, 64)
 # the kernels each wrapper launches, as torch.profiler names them
 FLASH_KERNELS = ("flash_fwd", "flash_merge")
 WKV_KERNELS = ("wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
 MAX_NEW = 16
+# the trace that holds the paged engine's CUDA-graph decode block against
+# the eager block: six requests (prompt length, new tokens) on three slots,
+# all queued at tick 0, one prefill chunk each; at a drain every 8 ticks
+# slots free and take the next request before and after the capture (the
+# second block), and two requests decode across the replays
+GRAPH_TRACE = ((32, 12), (16, 5), (32, 6), (16, 12), (32, 7), (16, 4))
+GRAPH_TRACE_SLOTS = 3
 PARITY_TOL = 1e-3  # f32 logits of magnitude ~1; only summation order differs
 # train steps, card against CPU in f32: sums in another order, through 3
 # steps of AdamW (whose first steps move each weight by about the lr)
@@ -340,7 +385,7 @@ RESUME_TOL = 1e-3
 # activations, recurrentgemma-9b needs 150 GB and minicpm3-4b 65 GB (where
 # gemma-2b's 2.5 B already peaks at 45.8 GB): neither trains at full
 # width.  deepseek-v2-236b does not fit the card at all (472 GB in bf16).
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 10, 2, 1024, 3e-4
 TRAIN_FULL = ("gemma-2b", "h2o-danube-1.8b", "granite-moe-1b-a400m")
 # smoke configs trained on the card against the CPU
 TRAIN_PARITY = ("gemma-2b", "rwkv6-1.6b", "h2o-danube-1.8b",
@@ -377,7 +422,7 @@ ORCH_T33 = ({"tokens_per_page": 33}, {"tokens_per_page": 33, "vocab": 16})
 # mesh at the config's capacity_factor 1.25, and as many without a mesh
 # (the dense path), bf16, remat full
 DIST_ARCH, DIST_PARITY_LAYERS = "granite-moe-1b-a400m", 4
-DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 2048, 10
+DIST_BATCH, DIST_SEQ, DIST_STEPS = 4, 2048, 5
 DIST_PARITY_RTOL, DIST_GRAD_TOL = 2e-4, 1e-3
 # rwkv6-1.6b on the same mesh (ROADMAP §3, fault 4): full width, bf16,
 # remat full, B x S = TRAIN_BATCH x TRAIN_SEQ, DIST_RWKV_STEPS steps on
@@ -394,6 +439,13 @@ DIST_RWKV, DIST_RWKV_STEPS, DIST_RWKV_RTOL = "rwkv6-1.6b", 5, 1e-3
 # prompts in f32, the mesh fed the no-mesh run's tokens, every logit held
 # to PARITY_TOL
 DIST_SERVE, DIST_SERVE_F32 = ("gemma-2b@6", "rwkv6-1.6b@6"), 1
+
+# the serving benchmark's grid (phase_serving_benches): gemma-2b at full
+# width in bf16, cut to its first 6 layers (a labelled depth cut,
+# gemma-2b@6, gated against its own H100 baseline): at its 18 layers the
+# grid takes about 100 s and the whole run passed 1100 s (PERF.md); the
+# full depth's grid runs on its own (torch_serving_bench.py --smoke)
+SERVE_BENCH_LAYERS = 6
 
 # the paper-claims phase (phase_paper_claims): the seeds and limits of
 # tests/test_paper_claims.py.  The card's numbers must equal the CPU's but
@@ -570,7 +622,92 @@ def phase_build() -> dict[str, dict]:
             raise AssertionError(f"[build] no ptxas spill report for {key}")
         if any(r["spill_stores"] for r in hits):
             raise AssertionError(f"[build] {key} spills: {hits}")
+    second = {fn: r for fn, r in ptxas.items()
+              if ("flash_fwd_wgmma_kernel" in fn and "ELi128EE" in fn)
+              or ("wkv_" in fn and "ELi32EE" in fn)}
+    log(f"[build] second tiles (128-key flash bodies, 32-step WKV chunks): "
+        f"{len(second)} functions, {json.dumps(second)}")
+    if not any("flash" in fn for fn in second) or not any(
+            "wkv" in fn for fn in second):
+        raise AssertionError("[build] no ptxas report of the second tiles")
+    phase_fit()
+    for fn, rep in second.items():
+        if rep.get("spill_stores") and "flash_fwd_wgmma_kernel" in fn:
+            _spill_time(fn, rep)
     return ptxas
+
+
+def _spill_time(fn: str, rep: dict) -> None:
+    """A second-tile flash instantiation that spills, run at a prefill of
+    its (D, Dv) (B 1, 1000 tokens, 16 heads, causal): held to the plain
+    version and timed against its 64-key tile on the same inputs."""
+    import re
+
+    from repro_torch.kernels import flash_attention as fa
+
+    D, Dv, bk = map(int, re.search(r"kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                                   fn).groups())
+    case = (f"spill_d{D}_dv{Dv}", 1, 1000, 1000, 16, 16, D, Dv, True, 0, 0,
+            1.0, False, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+               for s in ((1, 1000, 16, D), (1, 1000, 16, D), (1, 1000, 16, Dv)))
+    kw = dict(causal=True, window=0, q_offset=0, out_scale=1.0, residual=None)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    err, rel, _ = _flash_check(case[0], case, fa.flash_attention(
+        q, k, v, block_k=bk, **kw), ref, q, k, v, kw, bk)
+    times = {b: device_ms(lambda b=b: fa.flash_attention(q, k, v, block_k=b,
+                                                          **kw))
+             for b in (fa.BLOCK_K, bk)}
+    log(f"[build] spill: D {D} Dv {Dv} block_k {bk}: {json.dumps(rep)}; at "
+        f"B 1 x 1000, 16 heads, causal: max abs err {err}, relative {rel}; "
+        f"device ms by key tile {json.dumps(times)}")
+
+
+def phase_fit() -> None:
+    """The tuner's SM fit model (kernels/autotune.py) against the C
+    entries: the bytes of every tile at FIT_SHAPES and FIT_N equal
+    ``repro_flash_attention_smem`` / ``repro_linear_scan_smem`` exactly,
+    the wgmma body's CTAs an SM its launch bound, the host's body choice
+    the C entry's, and a tile a body lacks is refused (-1)."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+
+    rows, bf16 = [], torch.bfloat16
+    for D, Dv in FIT_SHAPES:
+        body = fa.select_body(bf16, D, Dv, D ** -0.5)
+        if body != fa.body_of(bf16, D, Dv):
+            raise AssertionError(f"[fit] D {D} Dv {Dv}: the host picks "
+                                 f"{fa.body_of(bf16, D, Dv)}, C {body}")
+        for bk in (fa.BLOCK_K, SECOND_BLOCK_K):
+            c_bytes = fa.smem_bytes(D, Dv, bk)
+            built = bk in fa.key_tiles(body, Dv)
+            if not built:
+                if c_bytes != -1:
+                    raise AssertionError(f"[fit] {body} D {D} Dv {Dv}: C sizes"
+                                         f" an unbuilt {bk}-key tile")
+                continue
+            py = at.attention_smem_bytes(fa.BLOCK_Q, bk, D, Dv, bf16)
+            ctas = at.attention_ctas(fa.BLOCK_Q, bk, D, Dv, bf16)
+            c_ctas = fa.wgmma_ctas(D, Dv, bk) if body == "wgmma" else None
+            rows.append((body, D, Dv, bk, c_bytes, py, ctas, c_ctas))
+            if c_bytes != py or (c_ctas is not None and c_ctas != ctas):
+                raise AssertionError(f"[fit] {body} D {D} Dv {Dv} block_k "
+                                     f"{bk}: C {c_bytes} bytes, {c_ctas} "
+                                     f"CTAs; the model {py}, {ctas}")
+    for N in FIT_N:
+        for chunk in ls.KERNEL_CHUNKS:
+            c_bytes, py = ls.smem_bytes(N, chunk), at.scan_smem_bytes(chunk, N)
+            rows.append(("wkv", N, N, chunk, c_bytes, py,
+                         at.scan_ctas(chunk, N), None))
+            if c_bytes != py:
+                raise AssertionError(f"[fit] wkv N {N} chunk {chunk}: C "
+                                     f"{c_bytes} bytes, the model {py}")
+    if ls.smem_bytes(64, 16) != -1:
+        raise AssertionError("[fit] wkv: C sizes an unbuilt 16-step chunk")
+    log(f"[fit] {len(rows)} tiles, C bytes == the tuner's model: "
+        f"{json.dumps(rows)}")
 
 
 def _visible(case) -> torch.Tensor:
@@ -592,21 +729,44 @@ def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return float((out.float() - ref).norm() / ref.norm())
 
 
-def _planted_ragged(case, q, k, v, ref, kw) -> float | None:
+def _planted_ragged(case, q, k, v, ref, kw, block_k: int = 64) -> float | None:
     """The relative error of a kernel that left a ragged last key tile
     unmasked, TMA zero-filling the keys past Skv: the plain version over K
-    and V zero-padded to a whole tile.  None where no tile is ragged or the
-    causal mask hides the pad anyway."""
+    and V zero-padded to a whole tile of ``block_k`` keys.  None where no
+    tile is ragged or the causal mask hides the pad anyway."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     Skv, causal = case[3], case[8]
-    pad = -Skv % fa.BLOCK_K
+    pad = -Skv % block_k
     if causal or not pad:
         return None
     kp, vp = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
     return _rel_err(fa.flash_attention_plain(q, kp, vp, **kw), ref)
+
+
+def _flash_check(name, case, out, ref, q, k, v, kw, block_k):
+    """(max abs err, relative err, the planted ragged tile's relative err)
+    of one flash output against the plain version's; raises past TOL or
+    REL_TOL, on a non-finite value, or where REL_TOL would pass an
+    unmasked ragged tile of ``block_k`` keys."""
+    dt = case[-1]
+    diff = (out.float() - ref.float()).abs()
+    err, rel = float(diff.max()), _rel_err(out, ref)
+    tol, rel_tol = TOL[dt], REL_TOL[dt]
+    planted = _planted_ragged(case, q, k, v, ref, kw, block_k)
+    if not bool(torch.isfinite(out).all()) or bool(
+            (diff > tol + tol * ref.float().abs()).any()) or rel > rel_tol:
+        raise AssertionError(f"[kernels] {name}: kernel disagrees with its "
+                             f"plain version, max abs err {err}, relative "
+                             f"{rel} (limit {rel_tol}; an unmasked ragged "
+                             f"tile would give {planted})")
+    if planted is not None and planted <= rel_tol:
+        raise AssertionError(f"[kernels] {name}: the relative limit "
+                             f"{rel_tol} passes an unmasked ragged tile "
+                             f"({planted})")
+    return err, rel, planted
 
 
 def _bound(case, q, k, v, out, res) -> tuple[float, str]:
@@ -672,20 +832,9 @@ def phase_kernels() -> list[dict]:
         out = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, **kw)
-        diff = (out.float() - ref.float()).abs()
-        err, rel = float(diff.max()), _rel_err(out, ref)
+        err, rel, planted = _flash_check(name, case, out, ref, q, k, v, kw,
+                                         fa.BLOCK_K)
         tol, rel_tol = TOL[dt], REL_TOL[dt]
-        planted = _planted_ragged(case, q, k, v, ref, kw)
-        if not bool(torch.isfinite(out).all()) or bool(
-                (diff > tol + tol * ref.float().abs()).any()) or rel > rel_tol:
-            raise AssertionError(f"[kernels] {name}: kernel disagrees with its "
-                                 f"plain version, max abs err {err}, relative "
-                                 f"{rel} (limit {rel_tol}; an unmasked ragged "
-                                 f"tile would give {planted})")
-        if planted is not None and planted <= rel_tol:
-            raise AssertionError(f"[kernels] {name}: the relative limit "
-                                 f"{rel_tol} passes an unmasked ragged tile "
-                                 f"({planted})")
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
         dev_kernels = {}
         dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw),
@@ -718,6 +867,23 @@ def phase_kernels() -> list[dict]:
         library_device_ms = (device_ms(lib, by_kernel=lib_kernels)
                              if lib is not None else None)
         bound_ms, bound_by = _bound(case, q, k, v, out, res)
+        second = {}
+        if SECOND_BLOCK_K in fa.key_tiles(body, Dv):  # same inputs, same run
+            kw2 = dict(kw, block_k=SECOND_BLOCK_K)
+            out2 = fa.flash_attention(q, k, v, **kw2)
+            torch.cuda.synchronize()
+            err2, rel2, planted2 = _flash_check(
+                f"{name} block_k {SECOND_BLOCK_K}", case, out2, ref, q, k, v,
+                kw, SECOND_BLOCK_K)
+            plan2 = fa.split_plan(B, Sq, Skv, Hq, causal, window, q_offset,
+                                  block_k=SECOND_BLOCK_K)
+            second = {"second_tile": dict(
+                block_q=fa.BLOCK_Q, block_k=SECOND_BLOCK_K, max_abs_err=err2,
+                rel_err=rel2, planted_ragged_rel_err=planted2,
+                splits=len(plan2.merges), items=len(plan2.items),
+                ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw2)),
+                device_ms=device_ms(lambda: fa.flash_attention(q, k, v, **kw2)),
+                bound_ms=bound_ms, bound_by=bound_by)}
         row = dict(case=name, shape=[B, Sq, Skv, Hq, Hkv, D, Dv],
                    dtype=str(dt).replace("torch.", ""), causal=causal,
                    window=window, q_offset=q_offset, max_abs_err=err,
@@ -733,7 +899,8 @@ def phase_kernels() -> list[dict]:
                    library_backend=(_sdpa_backend(lib_kernels)
                                     if lib is not None else None),
                    library_kernels=sorted(lib_kernels),
-                   bound_ms=bound_ms, bound_by=bound_by, **prev)
+                   bound_ms=bound_ms, bound_by=bound_by, block_q=fa.BLOCK_Q,
+                   block_k=fa.BLOCK_K, **prev, **second)
         log(f"[kernels] {json.dumps(row)}")
         results.append(row)
     return results
@@ -806,6 +973,13 @@ def phase_wkv_kernel() -> list[dict]:
                     lambda: ls.linear_scan(*args, _body="step")))
         plain_ms = cuda_ms(lambda: ls.linear_scan_plain(*args), reps=5)
         bound_ms, bound_by = _wkv_bound(args, y, s_fin)
+        c2 = SECOND_CHUNK  # the second chunk, same inputs, same run
+        second = {"second_tile": dict(
+            chunk=c2, max_abs_err=_wkv_check(
+                name, f"chunked/{c2}", ls.linear_scan(*args, chunk=c2), refs),
+            ms=cuda_ms(lambda: ls.linear_scan(*args, chunk=c2)),
+            device_ms=device_ms(lambda: ls.linear_scan(*args, chunk=c2)),
+            bound_ms=bound_ms, bound_by=bound_by)}
         row = dict(case=name, shape=[B, S, H, N], dtype="float32",
                    w_raw_max=w_hi, max_abs_err=err, step_max_abs_err=step_err,
                    max_abs_plain=float(refs[0].abs().max()),
@@ -814,10 +988,96 @@ def phase_wkv_kernel() -> list[dict]:
                    device_ms=dev_ms, device_ms_by_kernel=dev_kernels,
                    plain_ms=plain_ms, library_ms=None,
                    library_device_ms=None, bound_ms=bound_ms,
-                   bound_by=bound_by, **prev)
+                   bound_by=bound_by, chunk=ls.KERNEL_CHUNK, **prev, **second)
         log(f"[kernels] wkv {json.dumps(row)}")
         results.append(row)
     return results
+
+
+def phase_tuner() -> dict[str, int]:
+    """kernels/ops.py's tuned dispatch on the card, through a fresh cache
+    file under build/ (no baseline): a miss times each candidate once
+    (``timing_calls``) and persists the winner, the next call does no
+    timing and launches the winner, an explicit tile never reaches the
+    tuner, and a new tuner reads the winner back from the file with no
+    timing.  Flash at the zoo's deepseek-7b-mha shape (two candidates), the
+    WKV scan at its rwkv6 shape (two).  Returns the launches of the phase
+    (the timing runs' among them)."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops
+
+    path = ROOT / "build" / "tuner_phase" / "cache.json"
+    path.unlink(missing_ok=True)
+    at.reset_tuner()
+    tuner = at._TUNER = at.Autotuner(cache_path=str(path), baseline_path="")
+    fa.launches = ls.launches = 0
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = (torch.randn((1, 512, 2, 128), generator=g, device="cuda").to(bf16)
+               for _ in range(3))
+    scan = _wkv_inputs(1, 512, 2, 64, seed=23)
+    calls = {
+        "flash": (lambda **kw: ops.flash_attention(q, k, v, causal=True, **kw),
+                  at.attention_key(q.shape, k.shape, v.shape, bf16,
+                                   causal=True, window=0, backend="cuda"),
+                  at.attention_candidates(512, 512, 128, 128, bf16)),
+        "wkv": (lambda **kw: ops.linear_scan(*scan, **kw)[0],
+                at.scan_key(scan[0].shape, torch.float32, backend="cuda"),
+                at.scan_candidates(512, 64)),
+    }
+    refs = {"flash": fa.flash_attention_plain(q, k, v, causal=True),
+            "wkv": ls.linear_scan_plain(*scan)[0]}
+    rows = {}
+    for name, (call, key, cands) in calls.items():
+        before = tuner.timing_calls
+        out = call(tuned=True)
+        timed = tuner.timing_calls - before
+        stored = json.loads(path.read_text())["entries"][key]
+        hit_launches = fa.launches + ls.launches
+        again = call(tuned=True)
+        torch.cuda.synchronize()
+        if timed != len(cands) or tuner.timing_calls - before != timed:
+            raise AssertionError(f"[tuner] {name}: {timed} timings on the miss "
+                                 f"for {len(cands)} candidates, "
+                                 f"{tuner.timing_calls - before - timed} on the hit")
+        if fa.launches + ls.launches != hit_launches + 1:
+            raise AssertionError(f"[tuner] {name}: the hit launched "
+                                 f"{fa.launches + ls.launches - hit_launches}")
+        for o in (out, again):
+            err = float((o.float() - refs[name].float()).abs().max())
+            scale = 1.0 if name == "flash" else max(1.0, float(refs[name].abs().max()))
+            lim = TOL[bf16] * 2 if name == "flash" else WKV_TOL
+            if err > lim * scale:
+                raise AssertionError(f"[tuner] {name}: tuned output off its "
+                                     f"plain version by {err}")
+        rows[name] = dict(key=key, candidates=stored["candidates"],
+                          winner=stored["config"], us=stored["us"],
+                          timing_calls=timed)
+    real = at.get_tuner
+
+    def consulted():
+        raise AssertionError("[tuner] an explicit tile consulted the tuner")
+
+    at.get_tuner = consulted
+    try:
+        calls["flash"][0](tuned=True, block_q=64, block_k=SECOND_BLOCK_K)
+        calls["wkv"][0](tuned=True, chunk=SECOND_CHUNK)
+    finally:
+        at.get_tuner = real
+    fresh = at.Autotuner(cache_path=str(path), baseline_path="")
+    for name, row in rows.items():
+        if fresh.lookup(row["key"])["config"] != row["winner"]:
+            raise AssertionError(f"[tuner] {name}: the file holds another tile")
+    if fresh.timing_calls:
+        raise AssertionError("[tuner] a reload timed something")
+    torch.cuda.synchronize()
+    launches = {"flash": fa.launches, "wkv": ls.launches}
+    log(f"[tuner] {json.dumps(rows)}; explicit tiles bypassed the tuner; "
+        f"reloaded with 0 timings; launches {json.dumps(launches)}")
+    at.reset_tuner()
+    return launches
 
 
 def _config(arch: str):
@@ -944,7 +1204,81 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
     log(f"[serve] {cfg.name} bf16 greedy tokens equal across engines: "
         f"{agree}/{len(prompts) * MAX_NEW} (the two engines round in bf16 at "
         f"other places, so bf16 streams may part)")
+    _graph_matches_eager(model, params)
     return launches
+
+
+def _graph_matches_eager(model, params) -> None:
+    """The paged engine's decode block replayed as a CUDA graph against the
+    same block run eagerly: one trace (GRAPH_TRACE, more requests than
+    slots, so slots and pages are freed and admitted again after the
+    capture) through two engines at the serving grid's parameters, one of
+    whose ``_tick_block`` runs ``_decode_ticks``.
+    At every drain the slot state, the block table and every cache leaf
+    must be equal bit for bit, and so must every request's tokens.  A
+    pool's last page is left out: it is the write-only trash page, which
+    padded prefill rows and inactive decode rows write in no fixed order
+    (two eager runs part there too) and no read reaches."""
+    from repro_torch.launch.paged_kv import _pages_dim
+    from repro_torch.launch.serve import PagedServingEngine, Request
+    from repro_torch.utils import tree_leaves, tree_map
+
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
+               for n, _ in GRAPH_TRACE]
+
+    class Engine(PagedServingEngine):
+        eager = False
+
+        def _tick_block(self):
+            if self.eager:
+                self._decode_ticks()
+            else:
+                super()._tick_block()
+
+        def _drain(self, now):
+            kv = self.kv
+            pages = tree_map(lambda leaf, spec: leaf if _pages_dim(spec) is None
+                             else leaf.narrow(_pages_dim(spec), 0, kv.n_pages),
+                             kv.cache, kv.specs)
+            self.snaps.append([t.clone() for t in (
+                self.out_buf, self.out_cnt, self.pos, self.last_token,
+                self.remaining, kv.table, *tree_leaves(pages))])
+            super()._drain(now)
+
+    runs = {}
+    for eager in (False, True):
+        reqs = [Request(rid=i, prompt=p, max_new=n)
+                for i, (p, (_, n)) in enumerate(zip(prompts, GRAPH_TRACE))]
+        eng = Engine(model, params, n_slots=GRAPH_TRACE_SLOTS, max_len=128,
+                     page_size=16, chunk_max=32, drain_every=8,
+                     prefill_chunks_per_tick=4)
+        eng.eager, eng.snaps = eager, []
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        if not eager and eng._graph is None:
+            raise AssertionError("[serve] the paged engine captured no graph")
+        runs[eager] = (eng.snaps, reqs, eng.drain_every)
+    (g_snaps, g_reqs, K), (e_snaps, e_reqs, _) = runs[False], runs[True]
+    late = sum(r.admit_tick >= 2 * K for r in g_reqs)
+    if len(g_snaps) != len(e_snaps) or len(g_snaps) < 4 or late == 0:
+        raise AssertionError(f"[serve] graph run drained {len(g_snaps)} "
+                             f"times, eager {len(e_snaps)}; {late} "
+                             f"admissions after the capture")
+    for i, (a, b) in enumerate(zip(g_snaps, e_snaps)):
+        bad = [j for j, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"[serve] {model.cfg.name} drain {i}: the "
+                                 f"graph's state parts from eager's at "
+                                 f"tensors {bad[:8]}")
+    if [r.out for r in g_reqs] != [r.out for r in e_reqs]:
+        raise AssertionError(f"[serve] {model.cfg.name}: graph tokens part "
+                             f"from eager tokens")
+    log(f"[serve] {model.cfg.name} paged decode block, CUDA graph against "
+        f"eager: {len(g_snaps)} drains bit-equal ({len(g_snaps[0])} tensors "
+        f"each: slot state, block table, cache leaves but the trash page), "
+        f"{sum(len(r.out) for r in g_reqs)} tokens equal, {late} of "
+        f"{len(g_reqs)} requests admitted after the capture")
 
 
 def _engines_agree(model32, params, prompts) -> None:
@@ -957,8 +1291,13 @@ def _engines_agree(model32, params, prompts) -> None:
     PagedServingEngine(model32, params, n_slots=2, max_len=1024, page_size=16,
                        chunk_max=64, drain_every=8, dtype=torch.float32).run(q)
     agree = sum(a == b for x, y in zip(d, q) for a, b in zip(x.out, y.out))
+    total = sum(len(x.out) for x in d)
     log(f"[parity] {model32.cfg.name} f32 greedy tokens equal across engines: "
-        f"{agree}/{sum(len(x.out) for x in d)}")
+        f"{agree}/{total}")
+    if agree != total or total != len(prompts) * 8:
+        raise AssertionError(f"[parity] {model32.cfg.name}: f32 greedy "
+                             f"tokens of the paged engine part from the "
+                             f"dense engine's ({agree}/{total})")
 
 
 def _prefill_both(model, params, prompt, dtype):
@@ -1606,11 +1945,11 @@ def train_flops(cfg, batch: int, seq: int, executed: bool = False) -> float:
 
 
 def phase_train_full(card: str, arch: str) -> dict[str, int]:
-    """``arch`` at full width, 20 steps of ``train`` (bf16 compute, remat
+    """``arch`` at full width, TRAIN_STEPS steps of ``train`` (bf16, remat
     full, B x S = TRAIN_BATCH x TRAIN_SEQ, seed 0, no checkpoint: gemma-2b's
     f32 masters plus m and v would write 30 GB a save), then one more step
     under ``torch.profiler``.  Returns the kernels' launches across the
-    20 steps."""
+    TRAIN_STEPS steps."""
     from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset
     from repro_torch.kernels import flash_attention as fa
@@ -2749,7 +3088,7 @@ def _start_orch_benches(out: Path) -> dict:
         cwd=ROOT) for name in ORCH_BENCHES}
 
 
-def _dry_cells_check(cells: list[dict], t: float) -> None:
+def _dry_cells_check(cells: list[dict]) -> None:
     """(d) the training cell DRY_CELL and (e) the serving cells
     DRY_SERVE_CELLS, each ``ok`` with its argument bytes a rank under the
     card's 80 GB."""
@@ -2775,8 +3114,7 @@ def _dry_cells_check(cells: list[dict], t: float) -> None:
                 f"[dryrun] {cell['arch']} x {cell['shape']}: "
                 f"{cell['memory_analysis']['argument_size_in_bytes']} "
                 "argument bytes a rank")
-    log(f"[dryrun] (d), (e) {len(cells)} cells ok, "
-        f"{time.perf_counter() - t:.1f} s into the host phase")
+    log(f"[dryrun] (d), (e) {len(cells)} cells ok")
 
 
 def _orch_benches_check(procs: dict, out: Path, card: str) -> None:
@@ -2831,36 +3169,215 @@ def _orch_benches_check(procs: dict, out: Path, card: str) -> None:
     log(f"[orch-bench] the twins' gates passed ({card})")
 
 
-def phase_host(card: str) -> None:
-    """The host's own work in children: first the orchestration benchmarks'
-    twins (ORCH_BENCHES, the crawl on the card) with nothing else beside
-    them, and their gates, since two of the recovery benchmark's checks
-    read its timing (the journaling overhead, a wall-time ratio, and what a
-    crash finds in flight, its threads' timing: beside the dry run's
-    children on an eight-core host the latter failed once).  Then the dry
-    run's cells of the 32x8 H100 mesh at once, each on a fake process
-    group: (d) DRY_CELL, the whole sharded train path at full width, and
-    (e) the serving cells DRY_SERVE_CELLS; and the cells' checks."""
+def _since_start() -> float:
+    """Seconds since ``main`` started, the clock of the ``[time]`` stamps."""
+    return time.perf_counter() - _RUN_START
+
+
+def start_dry_cells() -> tuple[ThreadPoolExecutor, list, float]:
+    """The dry run's cells of the 32x8 H100 mesh, all at once, each in a
+    child on a fake process group on the host's CPU: (d) DRY_CELL, the whole
+    sharded train path at full width, and (e) the serving cells
+    DRY_SERVE_CELLS.  They start with the run and take five of the host's
+    cores until they end, beside the build, the kernel phases (whose ``ms``
+    and ``plain_ms`` include the host's launch work) and whatever phases
+    follow until then; ``phase_host`` takes their results and logs when
+    the last one ended, on the ``[time]`` stamps' clock."""
+    every = (DRY_CELL,) + DRY_SERVE_CELLS
+    ex = ThreadPoolExecutor(len(every))
+
+    def cell(c):
+        return _dry_cell(*c, timeout=900), _since_start()
+
+    return ex, [ex.submit(cell, c) for c in every], _since_start()
+
+
+def phase_host(card: str, dry_cells) -> None:
+    """The host's own work in children: the dry run's cells started by
+    ``start_dry_cells``, waited for and checked; then the orchestration
+    benchmarks' twins (ORCH_BENCHES, the crawl on the card) with nothing
+    else beside them, and their gates, since two of the recovery
+    benchmark's checks read its timing (the journaling overhead, a
+    wall-time ratio, and what a crash finds in flight, its threads' timing:
+    beside the dry run's children on an eight-core host the latter failed
+    once)."""
+    ex, futures, t_cells = dry_cells
+    t0 = time.perf_counter()
+    cells, ends = zip(*(f.result() for f in futures))
+    ex.shutdown()
+    _dry_cells_check(list(cells))
+    log(f"[host] the dry-run cells ran from {t_cells:.1f} to "
+        f"{max(ends):.1f} s into the run (each ended at "
+        f"{', '.join(f'{e:.1f}' for e in ends)}): every phase stamped "
+        f"before {max(ends):.1f} s ran beside them")
     out = ROOT / "build" / "orch_benches"
     out.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     procs = _start_orch_benches(out)
     _orch_benches_check(procs, out, card)
-    t1 = time.perf_counter()
-    every = (DRY_CELL,) + DRY_SERVE_CELLS
-    with ThreadPoolExecutor(len(every)) as ex:
-        cells = list(ex.map(lambda c: _dry_cell(*c, timeout=900), every))
-    _dry_cells_check(cells, t0)
-    log(f"[host] phase {time.perf_counter() - t0:.1f} s: {len(procs)} twins "
-        f"alone {t1 - t0:.1f} s, then {len(cells)} dry-run cells at once "
+    log(f"[host] phase {time.perf_counter() - t0:.1f} s: {len(cells)} "
+        f"dry-run cells at once, started with the run, waited for "
+        f"{t1 - t0:.1f} s; then {len(procs)} twins alone "
         f"{time.perf_counter() - t1:.1f} s")
 
 
+def _child(args: list[str], tag: str, timeout: float = 900, cwd=None,
+           **env) -> str:
+    """One of the repo's scripts in a child process (the root and src on
+    its path): its output, or a failure with the output's end."""
+    full_env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]), **env}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *map(str, args)], cwd=cwd or ROOT,
+                       env=full_env, capture_output=True, text=True,
+                       timeout=timeout)
+    text = r.stdout + r.stderr
+    if r.returncode != 0:
+        raise AssertionError(f"[{tag}] {' '.join(map(str, args))} exited "
+                             f"{r.returncode}: {text[-3000:]}")
+    log(f"[{tag}] {Path(str(args[0])).name} {time.perf_counter() - t0:.1f} s")
+    return text
+
+
+def _gate(check: str, current: Path, baseline: str, tag: str) -> None:
+    """An unchanged ``benchmarks/check_<check>_regression.py`` on
+    ``current`` against ``benchmarks/baselines/<baseline>``."""
+    text = _child([ROOT / "benchmarks" / f"check_{check}_regression.py",
+                   "--current", current, "--baseline",
+                   ROOT / "benchmarks" / "baselines" / baseline], tag,
+                  timeout=120)
+    for line in text.strip().splitlines():
+        log(f"[{tag}] gate: {line}")
+
+
+def phase_tuner_benches(card: str) -> dict[str, dict[str, int]]:
+    """``benchmarks/torch_kernel_bench.py --smoke`` in a child (its tuner
+    sweep persisted in a cache file under build/, not the committed one),
+    then its unchanged gate against the H100 baseline; then
+    ``benchmarks/torch_microbench.py``.  Returns each child's launches."""
+    out = ROOT / "build" / "benches"
+    out.mkdir(parents=True, exist_ok=True)
+    kb = out / "torch_kernels_smoke.json"
+    (out / "tuner_cache.json").unlink(missing_ok=True)
+    text = _child([ROOT / "benchmarks" / "torch_kernel_bench.py", "--smoke",
+                   "--out", kb], "kernel-bench",
+                  REPRO_TORCH_AUTOTUNE_CACHE=str(out / "tuner_cache.json"))
+    for line in text.strip().splitlines()[:-1]:
+        log(f"[kernel-bench] {line}")
+    res = json.loads(kb.read_text())
+    if res["mode"] != "cuda" or any(r["speedup_vs_default"] < 1.0
+                                    for r in res["configs"].values()):
+        raise AssertionError(f"[kernel-bench] {json.dumps(res['summary'])}")
+    log(f"[kernel-bench] {json.dumps({n: {k: r[k] for k in ('tuned', 'candidates_us', 'device_ms', 'library_device_ms', 'library_backend', 'bound_ms', 'bound_by', 'roofline_frac')} for n, r in res['configs'].items()})} ({card})")
+    _gate("kernel", kb, "torch_kernel_bench_baseline.json", "kernel-bench")
+    mb = out / "torch_micro.json"
+    text = _child([ROOT / "benchmarks" / "torch_microbench.py", "--out", mb],
+                  "microbench")
+    for line in text.strip().splitlines():
+        log(f"[microbench] {line}")
+    micro = json.loads(mb.read_text())
+    return {"kernel bench": res["launches"], "microbench": micro["launches"]}
+
+
+def start_host_children() -> dict[str, tuple]:
+    """``benchmarks/torch_run.py --smoke`` (its JSON under build/benches)
+    and ``examples/torch_serve_lm.py --width full --arch gemma-2b``, each in
+    a child, started beside the orchestrator phase (neither child's numbers
+    are gated).  They share the host's cores with it and the example the
+    card too, so the orchestrator's walls and checkpoint rates, and those
+    of any phase that starts before they end, are taken beside them; a
+    thread a child waits for it and notes when it ended, and
+    ``phase_serving_benches`` takes their output and logs those times."""
+    out = ROOT / "build" / "benches"
+    out.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)])}
+    runs = {"run": ([ROOT / "benchmarks" / "torch_run.py", "--smoke"], out),
+            "serve-example": ([ROOT / "examples" / "torch_serve_lm.py",
+                               "--width", "full", "--arch", "gemma-2b"], ROOT)}
+    import atexit
+
+    procs = {tag: subprocess.Popen([sys.executable, *map(str, args)],
+                                   cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+             for tag, (args, cwd) in runs.items()}
+    t0 = _since_start()
+    # a failed run stops them too
+    atexit.register(lambda: [p.kill() for p in procs.values()
+                             if p.poll() is None])
+
+    done: dict[str, tuple[int, str, float]] = {}
+
+    def wait(tag, proc):
+        text, _ = proc.communicate(timeout=900)
+        done[tag] = proc.returncode, text, _since_start()
+
+    # daemon threads: a failed run exits without waiting for them
+    threads = {tag: threading.Thread(target=wait, args=(tag, p), daemon=True)
+               for tag, p in procs.items()}
+    for t in threads.values():
+        t.start()
+    return {tag: (t, done, t0) for tag, t in threads.items()}
+
+
+def phase_serving_benches(card: str, beside: dict) -> dict[str, dict[str, int]]:
+    """``benchmarks/torch_serving_bench.py --smoke`` at full width (gemma-2b,
+    bf16; SERVE_BENCH_LAYERS cuts its depth, labelled) in a child, then its
+    unchanged gate against the H100 baseline; then the output of the
+    children ``start_host_children`` started (``benchmarks/torch_run.py
+    --smoke``, ``examples/torch_serve_lm.py --width full --arch
+    gemma-2b``).  Returns the serving grid's launches."""
+    out = ROOT / "build" / "benches"
+    out.mkdir(parents=True, exist_ok=True)
+    sb = out / "torch_serving_smoke.json"
+    text = _child([ROOT / "benchmarks" / "torch_serving_bench.py", "--smoke",
+                   "--out", sb, *(["--layers", SERVE_BENCH_LAYERS]
+                                  if SERVE_BENCH_LAYERS else [])],
+                  "serving-bench")
+    for line in text.strip().splitlines():
+        log(f"[serving-bench] {line}")
+    res = json.loads(sb.read_text())
+    log(f"[serving-bench] {res['model']} ({card}): "
+        f"{json.dumps(res['summary'])}, grid {res['grid_wall_s']:.1f} s")
+    _gate("serving", sb, "torch_serving_baseline.json", "serving-bench")
+    texts = {}
+    for tag, (thread, done, t0) in beside.items():
+        thread.join(timeout=900)
+        if tag not in done:
+            raise AssertionError(f"[{tag}] did not end")
+        rc, texts[tag], end = done[tag]
+        if rc != 0:
+            raise AssertionError(f"[{tag}] exited {rc}: {texts[tag][-3000:]}")
+        for line in texts[tag].strip().splitlines():
+            log(f"[{tag}] {line}")
+        log(f"[{tag}] ran from {t0:.1f} to {end:.1f} s into the run: every "
+            f"phase stamped between those ran beside it")
+    if "name,us_per_call,derived\ntable1_cost," not in texts["run"]:
+        raise AssertionError(f"[run] {texts['run'][-600:]}")
+    if "[serve gemma-2b] 6 requests, 72 tokens" not in texts["serve-example"]:
+        raise AssertionError(f"[serve-example] {texts['serve-example'][-600:]}")
+    return {"serving bench": res["launches"]}
+
+
+_RUN_START = time.perf_counter()
+
+
 def main() -> None:
+    global _RUN_START
+    t_start = _RUN_START = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        log(f"[time] {phase} done {time.perf_counter() - t_start:.1f} s into "
+            f"the run")
+
     card = phase_env()
+    dry_cells = start_dry_cells()
     ptxas = phase_build()
     flash_rows = phase_kernels()
     wkv_rows = phase_wkv_kernel()
+    stamp("kernels")
+    tuned = {"tuner": phase_tuner(), **phase_tuner_benches(card)}
+    stamp("tuner and kernel benchmarks")
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -2915,11 +3432,14 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, model32, params
     torch.cuda.empty_cache()
+    stamp("serving gemma-2b, rwkv6-1.6b")
 
     for arch in SERVE_MODELS:
         for engine, n in phase_model(arch).items():
             flash_launches[f"{arch} {engine}"] = n
+        stamp(f"serving {arch}")
     flash_launches.update(phase_whisper())
+    stamp("serving models")
 
     phase_train_parity()
     phase_train_resume()
@@ -2927,13 +3447,27 @@ def main() -> None:
         train_launches = phase_train_full(card, arch)
         flash_launches[f"train {arch}"] = train_launches["flash"]
         wkv_launches[f"train {arch}"] = train_launches["wkv"]
+    stamp("training")
+    beside = start_host_children()
     phase_orchestrator(card)
+    stamp("orchestrator")
     serve = phase_distributed(card)
+    stamp("distributed")
     flash_launches.update(serve["flash"])
     wkv_launches.update(serve["wkv"])
     phase_paper_claims(card)
     phase_dryrun(card)
-    phase_host(card)
+    torch.cuda.empty_cache()
+    tuned.update(phase_serving_benches(card, beside))
+    stamp("serving benchmarks")
+    phase_host(card, dry_cells)
+    stamp("host")
+    # the new phases' own keys: the tuned dispatch and the benchmarks'
+    # children, apart from the main path's
+    for phase, n in tuned.items():
+        flash_launches[phase] = n.get("flash", 0)
+        if "wkv" in n:
+            wkv_launches[phase] = n["wkv"]
 
     log(json.dumps({"kernels": [
         _kernel_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,

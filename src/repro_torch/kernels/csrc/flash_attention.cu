@@ -66,6 +66,15 @@
 //    two below.  No setmaxnreg: shared memory already caps the CTAs an SM,
 //    so registers the producer warp gave back would feed no other CTA; it
 //    belongs with a pingpong of two consumer warpgroups.
+//    5. The key tile is a template parameter: 64 keys everywhere, and 128
+//       at Dv <= 128 (S = Q K^T as m64n128k16, 64 f32 registers of S a
+//       thread beside O, eight PV k-steps a tile, boxes of 128 rows).  A
+//       128-key tile halves the ring's barrier round trips and softmax
+//       passes a key, but its ring needs twice the shared memory: D 64 keeps
+//       two CTAs an SM, D >= 128 drops to one (wg_smem_bytes, and the
+//       launch bound follows it).  Which tile is faster at a shape is the
+//       tuner's question (kernels/autotune.py); callers that name no tile
+//       get 64.
 //    flash_merge_kernel: 32 registers, an 8-byte stack frame, 4 bytes of
 //    spill stores.
 //  * mma.sync (bf16, the other head dims: 16, 32, 80, 96/64; and on request
@@ -93,7 +102,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
+constexpr int kBlockK = 64;  // the key tile of the mma.sync and FMA bodies, and wgmma's default
 constexpr float kNegInf = -0.7f * FLT_MAX;  // finite "minus infinity" of the reference
 
 struct Args {
@@ -375,6 +384,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 128, f32) (+)= A (64 x 16) * B (16 x 128): A and B from shared
+// memory through descriptors, both K-major; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) * B (16 x 64) from
 // shared memory through a descriptor, MN-major (the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -437,10 +463,10 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 constexpr int kWgThreads = 160;  // warpgroup 0 computes, warp 4 loads
 constexpr int kStages = 2;       // K/V ring depth
 constexpr int kBox = 64;         // elements of one 128-byte swizzled TMA box row
-constexpr uint32_t kBoxBytes = 64 * 128;  // one box: 64 rows of 128 bytes
-// The register budget is the launch bound's: Dv = 256 (O alone is 128 f32 a
-// thread) runs one CTA an SM, Dv <= 128 two.
-__host__ __device__ constexpr int wg_ctas_per_sm(int dv) { return dv == 256 ? 1 : 2; }
+constexpr uint32_t kRowBytes = 128;  // a box row; a box of r rows is r * 128 bytes
+// Shared memory an SM offers its CTAs (228 KB), and what the runtime keeps
+// back of it for each CTA (1 KB)
+constexpr size_t kSmemPerSm = 228 * 1024, kSmemPerCta = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // One CTA's work: q tile `qt` of (batch b, q-head h) against key tiles
@@ -462,10 +488,20 @@ struct WgArgs {
   float* part_ml;  // (slots, 2, kBlockQ): running max in log2 units (-inf: no key), sum l
 };
 
-// Q, then kStages K tiles, then kStages V tiles, each 1024-byte aligned for
-// the 128-byte swizzle; then 7 mbarriers; plus slack to align the base
-__host__ __device__ constexpr size_t wg_smem_bytes(int d, int dv) {
-  return 1024 + sizeof(bf16) * (size_t)(kBlockQ * d + kStages * kBlockK * (d + dv)) + 64;
+// Q, then kStages K tiles, then kStages V tiles of bk keys, each 1024-byte
+// aligned for the 128-byte swizzle; then 7 mbarriers; plus slack to align
+// the base
+__host__ __device__ constexpr size_t wg_smem_bytes(int d, int dv, int bk) {
+  return 1024 + sizeof(bf16) * (size_t)(kBlockQ * d + kStages * bk * (d + dv)) + 64;
+}
+
+// CTAs an SM: the register budget's (Dv = 256: O alone is 128 f32 a thread,
+// one CTA; two below), or fewer where shared memory holds fewer.  The launch
+// bound is this count, so ptxas budgets registers for the CTAs that fit.
+__host__ __device__ constexpr int wg_ctas_per_sm(int d, int dv, int bk) {
+  const int regs = dv == 256 ? 1 : 2;
+  const int fit = (int)(kSmemPerSm / (wg_smem_bytes(d, dv, bk) + kSmemPerCta));
+  return fit < regs ? fit : regs;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -561,16 +597,26 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&p)
   if constexpr (DV == 256) wgmma_rs_n256(o, p, dv);
 }
 
+// S (64 x BK, f32) (+)= Q (64 x 16) * K^T (16 x BK), both from shared memory
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t dq, uint64_t dk,
+                                         int scale_d) {
+  if constexpr (BK == 64) wgmma_ss_n64(s, dq, dk, scale_d);
+  if constexpr (BK == 128) wgmma_ss_n128(s, dq, dk, scale_d);
+}
+
 // Grid: one CTA per work item, heaviest first.  Tensor maps are 4-D over
-// (d, head, s, batch) with a (64, 1, 64, 1) box, so rows past a batch's S
-// edge arrive as zeros.
-template <int D, int DV>
-__global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
+// (d, head, s, batch) with a (64, 1, 64, 1) box for Q and (64, 1, BK, 1) for
+// K and V, so rows past a batch's S edge arrive as zeros.
+template <int D, int DV, int BK>
+__global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(D, DV, BK))
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, const WgArgs w) {
-  constexpr uint32_t kQBytes = kBlockQ * D * 2, kKBytes = kBlockK * D * 2;
-  constexpr uint32_t kVBytes = kBlockK * DV * 2;
+  constexpr uint32_t kQBytes = kBlockQ * D * 2, kKBytes = BK * D * 2;
+  constexpr uint32_t kVBytes = BK * DV * 2;
+  // one 64-column box: 64 rows of Q, BK rows of K or V
+  constexpr uint32_t kQBox = kBlockQ * kRowBytes, kKBox = BK * kRowBytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + kQBytes;               // stage s at sK + s * kKBytes
@@ -602,21 +648,19 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
       mbar_expect_tx(q_full, kQBytes);
 #pragma unroll
       for (int c = 0; c < D / kBox; ++c)
-        tma_load(sQ + c * kBoxBytes, &tm_q, q_full, c * kBox, it.h, it.qt * kBlockQ, it.b);
+        tma_load(sQ + c * kQBox, &tm_q, q_full, c * kBox, it.h, it.qt * kBlockQ, it.b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);  // round 0 passes at once
-        const int k0 = (it.kt0 + i) * kBlockK;
+        const int k0 = (it.kt0 + i) * BK;
         mbar_expect_tx(k_full + 8 * s, kKBytes);
 #pragma unroll
         for (int c = 0; c < D / kBox; ++c)
-          tma_load(sK + s * kKBytes + c * kBoxBytes, &tm_k, k_full + 8 * s, c * kBox, hk, k0,
-                   it.b);
+          tma_load(sK + s * kKBytes + c * kKBox, &tm_k, k_full + 8 * s, c * kBox, hk, k0, it.b);
         mbar_expect_tx(v_full + 8 * s, kVBytes);
 #pragma unroll
         for (int c = 0; c < DV / kBox; ++c)
-          tma_load(sV + s * kVBytes + c * kBoxBytes, &tm_v, v_full + 8 * s, c * kBox, hk, k0,
-                   it.b);
+          tma_load(sV + s * kVBytes + c * kKBox, &tm_v, v_full + 8 * s, c * kBox, hk, k0, it.b);
       }
     }
   } else {
@@ -634,18 +678,18 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       const uint32_t parity = (i / kStages) & 1;
-      const int k0 = (it.kt0 + i) * kBlockK;
+      const int k0 = (it.kt0 + i) * BK;
 
       // S = Q K^T: Q and K both K-major; a 16-wide k-step is 32 bytes into
       // a swizzled 128-byte row, and every 64 dims the next box
-      float sc[32];
+      float sc[BK / 2];
       mbar_wait(k_full + 8 * s, parity);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_n64(sc, sw128_desc(sQ + off, 16, 1024),
-                     sw128_desc(sK + s * kKBytes + off, 16, 1024), kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_qk<BK>(sc, sw128_desc(sQ + (kk / 4) * kQBox + col, 16, 1024),
+                     sw128_desc(sK + s * kKBytes + (kk / 4) * kKBox + col, 16, 1024), kk > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -654,12 +698,12 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
       // sc[4j + e]: row r0 + 8 (e / 2), key k0 + 8 j + 2 t + e % 2.  Only a
       // tile that crosses the causal diagonal, the window edge or Skv masks;
       // a masked score is a true -inf, so an all-masked row keeps l == 0.
-      const bool edge = (a.causal && k0 + kBlockK - 1 > pq0) ||
+      const bool edge = (a.causal && k0 + BK - 1 > pq0) ||
                         (a.window > 0 && pq0 + kBlockQ - 1 - k0 >= a.window) ||
-                        k0 + kBlockK > a.Skv;
+                        k0 + BK > a.Skv;
       if (edge) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (!visible(pq0 + r0 + 8 * (e / 2), k0 + 8 * j + 2 * t + (e & 1), a.Skv, a.causal,
@@ -668,7 +712,7 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
       }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
       float alpha[2], ms[2];
@@ -683,7 +727,7 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
         ms[r] = m_new == kNegInf ? 0.f : m_new * sl2;  // nothing seen yet: every p is 0
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, -ms[e / 2]));
@@ -698,9 +742,9 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
       }
       // P in place as the A operand, rounded to bf16: the accumulator pairs
       // of keys [16 ks, 16 ks + 16) are exactly one k-step's A registers
-      uint32_t pa[4][4];
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
+      for (int ks = 0; ks < BK / 16; ++ks)
 #pragma unroll
         for (int x = 0; x < 4; ++x) pa[ks][x] = pack(sc[8 * ks + 2 * x], sc[8 * ks + 2 * x + 1]);
 
@@ -710,8 +754,8 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(DV))
       pin(o);
       wg_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_pv<DV>(o, pa[ks], sw128_desc(sV + s * kVBytes + ks * 2048, kBoxBytes, 1024));
+      for (int ks = 0; ks < BK / 16; ++ks)
+        wgmma_pv<DV>(o, pa[ks], sw128_desc(sV + s * kVBytes + ks * 2048, kKBox, 1024));
       wg_commit();
       wg_wait_all();
       pin(o);
@@ -1037,13 +1081,13 @@ EncodeTiled encode_tiled() {
 constexpr int kEncodeError = 100000;
 
 // 4-D map over (d, head, s, batch) of a contiguous (B, S, H, d) bf16 tensor;
-// box (64, 1, 64, 1) in the 128-byte swizzle; out-of-range rows read 0
-int encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int d) {
+// box (64, 1, rows, 1) in the 128-byte swizzle; out-of-range rows read 0
+int encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int d, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {2ull * d, 2ull * d * H, 2ull * d * H * S};  // bytes, dims 1-3
-  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)kBlockK, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1052,18 +1096,18 @@ int encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int d) {
   return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
-template <int D, int DV>
+template <int D, int DV, int BK>
 int launch_wgmma(const WgArgs& w, int n_items, int n_merges, cudaStream_t stream) {
   const Args& a = w.a;
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, a.q, a.B, a.Sq, a.Hq, D);
-  if (err == 0) err = encode(&tk, a.k, a.B, a.Skv, a.Hkv, D);
-  if (err == 0) err = encode(&tv, a.v, a.B, a.Skv, a.Hkv, DV);
+  int err = encode(&tq, a.q, a.B, a.Sq, a.Hq, D, kBlockQ);
+  if (err == 0) err = encode(&tk, a.k, a.B, a.Skv, a.Hkv, D, BK);
+  if (err == 0) err = encode(&tv, a.v, a.B, a.Skv, a.Hkv, DV, BK);
   if (err != 0) return err;
-  const size_t smem = wg_smem_bytes(D, DV);
-  err = raise_smem_limit<flash_fwd_wgmma_kernel<D, DV>>(smem);
+  const size_t smem = wg_smem_bytes(D, DV, BK);
+  err = raise_smem_limit<flash_fwd_wgmma_kernel<D, DV, BK>>(smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<D, DV><<<n_items, kWgThreads, smem, stream>>>(tq, tk, tv, w);
+  flash_fwd_wgmma_kernel<D, DV, BK><<<n_items, kWgThreads, smem, stream>>>(tq, tk, tv, w);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_merges == 0) return err;
   flash_merge_kernel<DV><<<n_merges * (kBlockQ / kMergeRows), 256, 0, stream>>>(w);
@@ -1071,7 +1115,10 @@ int launch_wgmma(const WgArgs& w, int n_items, int n_merges, cudaStream_t stream
 }
 
 #define REPRO_FA_CASES(X) X(16) X(32) X(64) X(80) X(96) X(128) X(256)
-#define REPRO_FA_WG_DV(X, D_) X(D_, 64) X(D_, 128) X(D_, 256)
+// (D, Dv, key tile): 64 keys at every (D, Dv), 128 at Dv <= 128 (at Dv 256
+// the 128-key ring would need 296,000 bytes at D 256, past a block's limit)
+#define REPRO_FA_WG_DV(X, D_) \
+  X(D_, 64, 64) X(D_, 128, 64) X(D_, 256, 64) X(D_, 64, 128) X(D_, 128, 128)
 #define REPRO_FA_WG_CASES(X) \
   REPRO_FA_WG_DV(X, 64) REPRO_FA_WG_DV(X, 128) REPRO_FA_WG_DV(X, 192) REPRO_FA_WG_DV(X, 256)
 
@@ -1094,19 +1141,51 @@ int repro_flash_attention_select(int dtype, int D, int Dv, float scale, int requ
   return request == 0 ? (wgmma ? 2 : 1) : -1;
 }
 
+// Dynamic shared memory of one CTA of the bf16 body that (D, Dv) selects
+// (scale > 0) with a key tile of block_k: the wgmma body's at an
+// instantiated (D, Dv, block_k), the mma.sync body's at block_k 64; -1 for
+// a tile that body lacks.  The tuner's fit model (kernels/autotune.py)
+// must give the same bytes.
+int repro_flash_attention_smem(int D, int Dv, int block_k) {
+  switch (repro_flash_attention_select(1, D, Dv, 1.f, 0)) {
+    case 2:
+#define REPRO_FA_WG(D_, DV_, BK_) \
+  if (D == D_ && Dv == DV_ && block_k == BK_) return (int)wg_smem_bytes(D_, DV_, BK_);
+      REPRO_FA_WG_CASES(REPRO_FA_WG)
+#undef REPRO_FA_WG
+      return -1;
+    case 1:
+      return block_k == kBlockK ? (int)mma_smem_bytes(D, Dv) : -1;
+    default:
+      return -1;
+  }
+}
+
+// CTAs of the wgmma body an SM at (D, Dv, block_k): its launch bound, which
+// is the register budget's count capped by the shared memory's; -1 for a
+// tile it lacks.
+int repro_flash_attention_ctas(int D, int Dv, int block_k) {
+#define REPRO_FA_WG(D_, DV_, BK_) \
+  if (D == D_ && Dv == DV_ && block_k == BK_) return wg_ctas_per_sm(D_, DV_, BK_);
+  REPRO_FA_WG_CASES(REPRO_FA_WG)
+#undef REPRO_FA_WG
+  return -1;
+}
+
 // Launches on `stream` and returns the launch's error (0 on success), or
 // 100000 + the CUresult of a failed tensor-map encode.  `res` may be null.
 // All tensors contiguous (B, S, H, D); bf16 needs D and Dv multiples of 16
 // and 16-byte aligned pointers.  The wgmma body takes the work items of the
-// split plan (`items`, n_items rows of 8 ints), its merges (n_merges rows of
-// 8 ints, may be 0) and f32 scratch for the partials: part_o (slots, 64,
-// Dv) and part_ml (slots, 2, 64).
+// split plan at key tile block_k (`items`, n_items rows of 8 ints), its
+// merges (n_merges rows of 8 ints, may be 0) and f32 scratch for the
+// partials: part_o (slots, 64, Dv) and part_ml (slots, 2, 64).  A key tile
+// the body lacks returns cudaErrorInvalidValue: nothing runs another tile.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, const void* res,
                               void* out, int dtype, int B, int Sq, int Skv, int Hq, int Hkv,
                               int D, int Dv, int causal, int window, int q_offset, float scale,
-                              float out_scale, int body, const void* items, int n_items,
-                              const void* merges, int n_merges, void* part_o, void* part_ml,
-                              void* stream) {
+                              float out_scale, int body, int block_k, const void* items,
+                              int n_items, const void* merges, int n_merges, void* part_o,
+                              void* part_ml, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, res, out, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, q_offset,
                scale, out_scale};
@@ -1119,10 +1198,13 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, const
       return cudaErrorInvalidValue;
     const WgArgs w{a, static_cast<const Item*>(items), static_cast<const Merge*>(merges),
                    static_cast<float*>(part_o), static_cast<float*>(part_ml)};
-#define REPRO_FA_WG(D_, DV_) \
-  if (D == D_ && Dv == DV_) return launch_wgmma<D_, DV_>(w, n_items, n_merges, s);
+#define REPRO_FA_WG(D_, DV_, BK_)             \
+  if (D == D_ && Dv == DV_ && block_k == BK_) \
+    return launch_wgmma<D_, DV_, BK_>(w, n_items, n_merges, s);
     REPRO_FA_WG_CASES(REPRO_FA_WG)
 #undef REPRO_FA_WG
+  } else if (block_k != kBlockK) {
+    return cudaErrorInvalidValue;
   } else if (body == 1) {
 #define REPRO_FA_MMA(DV_) \
   if (Dv == DV_) return launch<flash_fwd_mma_kernel<DV_>>(kMmaThreads, mma_smem_bytes(D, DV_), a, s);

@@ -19,9 +19,10 @@
 // about 0.18 ms there), and all its arithmetic sits on the CUDA cores.
 //
 // What the chunked body does about it (the default): like the TPU kernel it
-// works on chunks of kChunk = 64 steps as matrix products, and carries the
-// state only from chunk to chunk, so S dependent steps become S / 64
-// elementwise state updates.  Three launches on the caller's stream:
+// works on chunks of C = 64 steps (or 32, on request: the chunk is a
+// template parameter) as matrix products, and carries the state only from
+// chunk to chunk, so S dependent steps become S / C elementwise state
+// updates.  Three launches on the caller's stream:
 //  1. wkv_chunk_kernel, one CTA per (b, chunk, h): the chunk's own state
 //     update U = k_hat^T V, k_hat = k * e^{p_last - p} (p the inclusive
 //     cumulative log-decay inside the chunk), and its decay g = e^{p_last};
@@ -32,17 +33,20 @@
 //  3. wkv_out_kernel, one CTA per (b, chunk, h): y = (r * e^{p_prev})
 //     S_start + A V, where A is the chunk's C x C decay-weighted r k^T with
 //     the u-bonus on its diagonal.
-// With one chunk (S <= 64: every chunk round of the paged engine) only the
-// output kernel runs: it reads s0 as the start state and also writes
-// s_out = g * s0 + U, so each input is read once.
+// With one chunk (S <= C: every chunk round of the paged engine at C = 64)
+// only the output kernel runs: it reads s0 as the start state and also
+// writes s_out = g * s0 + U, so each input is read once.
 // Splitting the state pass into a parallel chunk product (1) and an
 // elementwise scan (2) keeps the tensor-core work on B * chunks * H CTAs
 // (512 at the prefill shape) instead of B * H = 32 walking the chunks.
 // Each CTA has 8 warps, 2 CTAs an SM.  In the output kernel all warps share
-// the diagonal tiles (4 x 4 blocks of pairs a lane group), six take one
-// off-diagonal tile each, and each then computes 16 rows by N / 2 columns
-// of y, row blocks paired {0, 3}, {1, 2} on a scheduler so the A V
-// product's triangle is balanced.
+// the diagonal tiles (4 x 4 blocks of pairs a lane group), one warp a pair
+// of 16-row sub-chunks takes each off-diagonal tile (six at C = 64, one at
+// 32), and each warp then computes 16 rows of y: at C = 64 by N / 2
+// columns, row blocks paired {0, 3}, {1, 2} on a scheduler so the A V
+// product's triangle is balanced; at C = 32 by N / 4 columns (N / 2 at
+// N = 16, where four warps rest).  A 32-step chunk doubles the CTAs and
+// the state passes, and halves A's triangle and each CTA's shared memory.
 // What still bounds it: the three kernels move about twice the bound's
 // bytes (k, log_w and v are read by passes 1 and 3, and the scratch state
 // is written and read twice), and inside the output kernel the diagonal tiles' exps
@@ -123,7 +127,8 @@ __device__ __forceinline__ long long seq_offset(const Args& a, int b, int s, int
 // ---------------------------------------------------------------------------
 // The chunked body.
 
-constexpr int kChunk = 64;  // steps per chunk
+// Steps per chunk C is a template parameter of the chunked body's kernels:
+// 64 (the default) or 32 (REPRO_WKV_CHUNKS)
 constexpr int kSub = 16;    // rows per sub-chunk: the unit of A's tiles
 constexpr int kThreads = 256;  // chunk and output kernels: 8 warps
 constexpr int kScanThreads = 128;  // state scan
@@ -137,7 +142,8 @@ struct Ld {
   static constexpr int kRow = N + 4;  // read as [row][k] or [col][k]
   static constexpr int kCol = N + 8;  // read as [k][col]
 };
-constexpr int kLdA = kChunk + 4;  // the C x C matrix A, read as [t][s]
+template <int C>
+constexpr int kLdA = C + 4;  // the C x C matrix A, read as [t][s]
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -199,13 +205,13 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], int k_steps, FA fa
     for (int e = 0; e < 4; ++e) acc[j][e] += lo[j][e];
 }
 
-// Copy kChunk rows of N floats of a (B, S, H, N) tensor, from step t0 on,
-// into dst with row stride ld; rows at or past S are zero filled.
-template <int N>
+// Copy C rows of N floats of a (B, S, H, N) tensor, from step t0 on, into
+// dst with row stride ld; rows at or past S are zero filled.
+template <int N, int C>
 __device__ __forceinline__ void load_chunk(float* dst, int ld, const float* src, const Args& a,
                                            int b, int h, int t0) {
   constexpr int kChunks = N / 4;
-  for (int i = threadIdx.x; i < kChunk * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < C * kChunks; i += kThreads) {
     const int row = i / kChunks, c = (i % kChunks) * 4;
     const bool valid = t0 + row < a.S;
     const float* g = src + (valid ? seq_offset<N>(a, b, t0 + row, h) + c : 0);
@@ -222,16 +228,17 @@ __device__ __forceinline__ void load_state(float* dst, int ld, const float* src)
   }
 }
 
-// In-place inclusive cumulative sum down the kChunk rows of `p` (row stride
-// ld), in log2 units: p[t] = sum_{s<=t} log_w[s] * log2(e).  Each column is
-// cut into kThreads / N segments, each summed in order in registers; then
-// each segment adds the final value of the one before it, which every
-// thread rebuilds with the same additions.  So p never rises down a column
-// (adding x <= 0 never rounds up), and a later row minus an earlier one is
-// never positive.
-template <int N>
+// In-place inclusive cumulative sum down the C rows of `p` (row stride ld),
+// in log2 units: p[t] = sum_{s<=t} log_w[s] * log2(e).  Each column is cut
+// into kThreads / N segments, each summed in order in registers; then each
+// segment adds the final value of the one before it, which every thread
+// rebuilds with the same additions.  So p never rises down a column (adding
+// x <= 0 never rounds up), and a later row minus an earlier one is never
+// positive.
+template <int N, int C>
 __device__ __forceinline__ void cumsum_log2(float* p, int ld) {
-  constexpr int kSegs = kThreads / N, kLen = kChunk / kSegs;
+  constexpr int kSegs = kThreads / N, kLen = C / kSegs;
+  static_assert(kLen >= 1, "a segment of the cumulative sum holds no row");
   const int n = threadIdx.x % N, seg = threadIdx.x / N;
   float x[kLen];
 #pragma unroll
@@ -262,37 +269,37 @@ struct UTiles {
   __device__ static int col0(int w) { return (N / 2) * (w / 4); }
 };
 
-template <int N>
+template <int N, int C>
 struct ChunkSmem {
-  float kh[kChunk][Ld<N>::kCol];  // k, then k_hat; read as A[n][t] = kh[t][n]
-  float v[kChunk][Ld<N>::kCol];
-  float p[kChunk][Ld<N>::kRow];   // log_w, then its cumulative sum (log2)
+  float kh[C][Ld<N>::kCol];  // k, then k_hat; read as A[n][t] = kh[t][n]
+  float v[C][Ld<N>::kCol];
+  float p[C][Ld<N>::kRow];   // log_w, then its cumulative sum (log2)
 };
 
 // Pass 1 (nc > 1): per (chunk c, head h, batch b), U = k_hat^T V and
 // g = e^{p_last}.
-template <int N>
+template <int N, int C>
 __global__ void __launch_bounds__(kThreads, 2) wkv_chunk_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  ChunkSmem<N>& sm = *reinterpret_cast<ChunkSmem<N>*>(smem_raw);
+  ChunkSmem<N, C>& sm = *reinterpret_cast<ChunkSmem<N, C>*>(smem_raw);
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int t0 = c * kChunk;
+  const int t0 = c * C;
 
-  load_chunk<N>(&sm.kh[0][0], Ld<N>::kCol, a.k, a, b, h, t0);
-  load_chunk<N>(&sm.p[0][0], Ld<N>::kRow, a.lw, a, b, h, t0);
+  load_chunk<N, C>(&sm.kh[0][0], Ld<N>::kCol, a.k, a, b, h, t0);
+  load_chunk<N, C>(&sm.p[0][0], Ld<N>::kRow, a.lw, a, b, h, t0);
   cp_async_commit();
-  load_chunk<N>(&sm.v[0][0], Ld<N>::kCol, a.v, a, b, h, t0);
+  load_chunk<N, C>(&sm.v[0][0], Ld<N>::kCol, a.v, a, b, h, t0);
   cp_async_commit();
   cp_async_wait_one();
   __syncthreads();
 
-  cumsum_log2<N>(&sm.p[0][0], Ld<N>::kRow);
+  cumsum_log2<N, C>(&sm.p[0][0], Ld<N>::kRow);
   const long long bch = (static_cast<long long>(b) * a.nc + c) * a.H + h;
   if (threadIdx.x < N)
-    a.decay[bch * N + threadIdx.x] = ex2(sm.p[kChunk - 1][threadIdx.x]);
-  for (int i = threadIdx.x; i < kChunk * N; i += kThreads) {
+    a.decay[bch * N + threadIdx.x] = ex2(sm.p[C - 1][threadIdx.x]);
+  for (int i = threadIdx.x; i < C * N; i += kThreads) {
     const int t = i / N, n = i % N;
-    sm.kh[t][n] *= ex2(sm.p[kChunk - 1][n] - sm.p[t][n]);
+    sm.kh[t][n] *= ex2(sm.p[C - 1][n] - sm.p[t][n]);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -303,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_chunk_kernel(const Args a) {
   if (!UT::active(w)) return;
   float acc[NT][4] = {};
   warp_mma<NT>(
-      acc, kChunk / 8, [&](int row, int t) { return sm.kh[t][n0 + row]; },
+      acc, C / 8, [&](int row, int t) { return sm.kh[t][n0 + row]; },
       [&](int t, int m) { return sm.v[t][m0 + m]; });
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   float* U = a.states + bch * N * N;
@@ -352,22 +359,31 @@ __global__ void __launch_bounds__(kScanThreads) wkv_state_scan_kernel(const Args
   reinterpret_cast<float4*>(a.s_out + bh * N * N)[idx] = s;
 }
 
-template <int N>
+template <int N, int C>
 struct OutSmem {
-  float r[kChunk][Ld<N>::kRow];
-  float k[kChunk][Ld<N>::kRow];
+  float r[C][Ld<N>::kRow];
+  float k[C][Ld<N>::kRow];
   // pp[t] = p_{t-1} (pp[0] = 0), so p_s = pp[s + 1]; log2 units
-  float pp[kChunk + 1][Ld<N>::kRow];
-  float A[kChunk][kLdA];  // decay-weighted r k^T, u-bonus on the diagonal
-  float v[kChunk][Ld<N>::kCol];
+  float pp[C + 1][Ld<N>::kRow];
+  float A[C][kLdA<C>];  // decay-weighted r k^T, u-bonus on the diagonal
+  float v[C][Ld<N>::kCol];
   float st[N][Ld<N>::kCol];  // the chunk's start state
   float u[N];
 };
 
+// Shared memory of the chunked body's larger CTA: the tuner's fit model
+// (kernels/autotune.py::scan_smem_bytes) must give the same bytes.
+template <int N, int C>
+constexpr size_t chunked_smem_bytes() {
+  return sizeof(OutSmem<N, C>) > sizeof(ChunkSmem<N, C>) ? sizeof(OutSmem<N, C>)
+                                                          : sizeof(ChunkSmem<N, C>);
+}
+
 // The off-diagonal tiles of A, one a warp: (query sub-chunk i, key
-// sub-chunk j), j < i.
+// sub-chunk j), j < i; the first kOffWarps<C> of them are the chunk's.
 __constant__ int kOffDiag[6][2] = {{1, 0}, {2, 0}, {2, 1}, {3, 0}, {3, 1}, {3, 2}};
-constexpr int kOffWarps = 6;
+template <int C>
+constexpr int kOffWarps = (C / kSub) * (C / kSub - 1) / 2;
 
 // The diagonal 16 x 16 tiles of A, elementwise on the CUDA cores:
 // A[t][s] = sum_n r_t k_s e^{pp_t - p_s} for s < t, sum_n r_t u k_t for
@@ -376,12 +392,18 @@ constexpr int kOffWarps = 6;
 // their sums with shuffles.  A thread reads 4 rows of each operand for 16
 // pairs, a quarter of the shared-memory traffic of one pair a thread.  The
 // rotation gives the last round to the warps without an off-diagonal tile.
-template <int N>
-__device__ __forceinline__ void diag_tiles(OutSmem<N>& sm) {
+// Whole warps run each round (the shuffles take every lane): where the
+// items do not fill the last warp (N = 16 at C = 32: 80 items), its lanes
+// past them compute item 0's block and store nothing.
+template <int N, int C>
+__device__ __forceinline__ void diag_tiles(OutSmem<N, C>& sm) {
   constexpr int kSlices = N / 4 < 8 ? N / 4 : 8, kW = N / kSlices;
-  constexpr int kItems = 4 * 10 * kSlices;
-  for (int item = (threadIdx.x + kThreads - 32 * kOffWarps) % kThreads; item < kItems;
-       item += kThreads) {
+  constexpr int kItems = (C / kSub) * 10 * kSlices;
+  constexpr int kRounds = (kItems + 31) / 32 * 32;
+  for (int it = (threadIdx.x + kThreads - 32 * kOffWarps<C>) % kThreads; it < kRounds;
+       it += kThreads) {
+    const bool valid = it < kItems;
+    const int item = valid ? it : 0;
     const int blk = item / kSlices, sl = item % kSlices;
     const int bk = blk % 10;
     int bi = 0;
@@ -428,7 +450,7 @@ __device__ __forceinline__ void diag_tiles(OutSmem<N>& sm) {
           acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (sl == i) {
+      if (valid && sl == i) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           if (s0 + j <= t0 + i) sm.A[t0 + i][s0 + j] = acc[i][j];
@@ -438,20 +460,20 @@ __device__ __forceinline__ void diag_tiles(OutSmem<N>& sm) {
 
 
 // Pass 3: per (chunk c, head h, batch b), y of the chunk's rows.
-template <int N>
+template <int N, int C>
 __global__ void __launch_bounds__(kThreads, 2) wkv_out_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  OutSmem<N>& sm = *reinterpret_cast<OutSmem<N>*>(smem_raw);
+  OutSmem<N, C>& sm = *reinterpret_cast<OutSmem<N, C>*>(smem_raw);
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tc = c * kChunk;
+  const int tc = c * C;
   const long long bh = static_cast<long long>(b) * a.H + h;
 
-  load_chunk<N>(&sm.r[0][0], Ld<N>::kRow, a.r, a, b, h, tc);
-  load_chunk<N>(&sm.k[0][0], Ld<N>::kRow, a.k, a, b, h, tc);
-  load_chunk<N>(&sm.pp[1][0], Ld<N>::kRow, a.lw, a, b, h, tc);
+  load_chunk<N, C>(&sm.r[0][0], Ld<N>::kRow, a.r, a, b, h, tc);
+  load_chunk<N, C>(&sm.k[0][0], Ld<N>::kRow, a.k, a, b, h, tc);
+  load_chunk<N, C>(&sm.pp[1][0], Ld<N>::kRow, a.lw, a, b, h, tc);
   if (threadIdx.x < N / 4) cp_async16(&sm.u[4 * threadIdx.x], a.u + h * N + 4 * threadIdx.x);
   cp_async_commit();
-  load_chunk<N>(&sm.v[0][0], Ld<N>::kCol, a.v, a, b, h, tc);
+  load_chunk<N, C>(&sm.v[0][0], Ld<N>::kCol, a.v, a, b, h, tc);
   const long long bch = (static_cast<long long>(b) * a.nc + c) * a.H + h;
   load_state<N>(&sm.st[0][0], Ld<N>::kCol,
                 a.nc == 1 ? a.s0 + bh * N * N : a.states + bch * N * N);
@@ -459,17 +481,17 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_out_kernel(const Args a) {
   cp_async_wait_one();
   if (threadIdx.x < N) sm.pp[0][threadIdx.x] = 0.f;
   __syncthreads();
-  cumsum_log2<N>(&sm.pp[1][0], Ld<N>::kRow);
+  cumsum_log2<N, C>(&sm.pp[1][0], Ld<N>::kRow);
 
   const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
 
-  for (int e = threadIdx.x; e < kChunk * kSub; e += kThreads) {
+  for (int e = threadIdx.x; e < C * kSub; e += kThreads) {
     const int t = e / kSub, j = e % kSub, s = (t / kSub) * kSub + j;
     if (s > t) sm.A[t][s] = 0.f;  // above the diagonal tiles' diagonal
   }
-  diag_tiles<N>(sm);
+  diag_tiles<N, C>(sm);
   // Off-diagonal tiles on the tensor cores, anchored at a = pp[16 i].
-  if (w < kOffWarps) {
+  if (w < kOffWarps<C>) {
     const int t0 = kSub * kOffDiag[w][0], s0 = kSub * kOffDiag[w][1];
     float acc[2][4] = {};
     warp_mma<2>(
@@ -487,30 +509,36 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_out_kernel(const Args a) {
   cp_async_wait_all();  // v and the start state
   __syncthreads();
 
-  // y = (r e^{pp}) S_start + A V.  Warp w: the 16 rows of sub-chunk rb and
-  // half (w >> 1) & 1 of the N columns.  Warps w and w + 4 share a
-  // scheduler; their row blocks are {0, 3} or {1, 2}, so the A V product's
-  // length (rb + 1 k-steps of 16) is balanced over the schedulers.
-  constexpr int NT = N / 16;
-  const int rb = w < 4 ? (w & 1) : 3 - (w & 1);
-  const int t0 = kSub * rb, m0 = (N / 2) * ((w >> 1) & 1);
+  // y = (r e^{pp}) S_start + A V.  C = 64: warp w takes the 16 rows of
+  // sub-chunk rb and half (w >> 1) & 1 of the N columns.  Warps w and w + 4
+  // share a scheduler; their row blocks are {0, 3} or {1, 2}, so the A V
+  // product's length (rb + 1 k-steps of 16) is balanced over the schedulers.
+  // C = 32: warp w takes sub-chunk w & 1 and the part w >> 1 of kParts
+  // column parts; warps past them rest.
+  constexpr int kParts = C == 64 ? 2 : (N / 8 < 4 ? N / 8 : 4);
+  constexpr int NT = N / (8 * kParts);
+  const int rb = C == 64 ? (w < 4 ? (w & 1) : 3 - (w & 1)) : (w & 1);
+  const int part = C == 64 ? (w >> 1) & 1 : w >> 1;
   const int g = lane >> 2, q = lane & 3;
-  float acc[NT][4] = {};
-  warp_mma<NT>(
-      acc, N / 8, [&](int row, int n) { return sm.r[t0 + row][n] * ex2(sm.pp[t0 + row][n]); },
-      [&](int n, int m) { return sm.st[n][m0 + m]; });
-  warp_mma<NT>(
-      acc, (t0 + kSub) / 8, [&](int row, int s) { return sm.A[t0 + row][s]; },
-      [&](int s, int m) { return sm.v[s][m0 + m]; });
+  if (part < kParts) {
+    const int t0 = kSub * rb, m0 = (N / kParts) * part;
+    float acc[NT][4] = {};
+    warp_mma<NT>(
+        acc, N / 8, [&](int row, int n) { return sm.r[t0 + row][n] * ex2(sm.pp[t0 + row][n]); },
+        [&](int n, int m) { return sm.st[n][m0 + m]; });
+    warp_mma<NT>(
+        acc, (t0 + kSub) / 8, [&](int row, int s) { return sm.A[t0 + row][s]; },
+        [&](int s, int m) { return sm.v[s][m0 + m]; });
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = tc + t0 + g + 8 * half;
-    if (t >= a.S) continue;
-    float* yrow = a.y + seq_offset<N>(a, b, t, h) + m0;
+    for (int half = 0; half < 2; ++half) {
+      const int t = tc + t0 + g + 8 * half;
+      if (t >= a.S) continue;
+      float* yrow = a.y + seq_offset<N>(a, b, t, h) + m0;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      *reinterpret_cast<float2*>(yrow + 8 * j + 2 * q) =
-          make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(yrow + 8 * j + 2 * q) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
   }
   if (a.nc > 1) return;
 
@@ -522,16 +550,16 @@ __global__ void __launch_bounds__(kThreads, 2) wkv_out_kernel(const Args a) {
   const int n0 = UT::row0(w), c0 = UT::col0(w);
   float u_acc[UT::NT][4] = {};
   warp_mma<UT::NT>(
-      u_acc, kChunk / 8,
+      u_acc, C / 8,
       [&](int row, int t) {
-        return sm.k[t][n0 + row] * ex2(sm.pp[kChunk][n0 + row] - sm.pp[t + 1][n0 + row]);
+        return sm.k[t][n0 + row] * ex2(sm.pp[C][n0 + row] - sm.pp[t + 1][n0 + row]);
       },
       [&](int t, int m) { return sm.v[t][c0 + m]; });
   float* out = a.s_out + bh * N * N;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int n = n0 + g + 8 * half;
-    const float gn = ex2(sm.pp[kChunk][n]);
+    const float gn = ex2(sm.pp[C][n]);
 #pragma unroll
     for (int j = 0; j < UT::NT; ++j) {
       const int m = c0 + 8 * j + 2 * q;
@@ -679,21 +707,21 @@ cudaError_t raise_smem_limit(size_t smem) {
   return err;
 }
 
-template <int N>
+template <int N, int C>
 cudaError_t launch_chunked(const Args& a, cudaStream_t stream) {
-  constexpr size_t chunk_smem = sizeof(ChunkSmem<N>), out_smem = sizeof(OutSmem<N>);
-  cudaError_t err = raise_smem_limit<wkv_chunk_kernel<N>>(chunk_smem);
-  if (err == cudaSuccess) err = raise_smem_limit<wkv_out_kernel<N>>(out_smem);
+  constexpr size_t chunk_smem = sizeof(ChunkSmem<N, C>), out_smem = sizeof(OutSmem<N, C>);
+  cudaError_t err = raise_smem_limit<wkv_chunk_kernel<N, C>>(chunk_smem);
+  if (err == cudaSuccess) err = raise_smem_limit<wkv_out_kernel<N, C>>(out_smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.nc, a.H, a.B);
   if (a.nc > 1) {
-    wkv_chunk_kernel<N><<<grid, kThreads, chunk_smem, stream>>>(a);
+    wkv_chunk_kernel<N, C><<<grid, kThreads, chunk_smem, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const dim3 scan_grid((N * N / 4 + kScanThreads - 1) / kScanThreads, a.H, a.B);
     wkv_state_scan_kernel<N><<<scan_grid, kScanThreads, 0, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  wkv_out_kernel<N><<<grid, kThreads, out_smem, stream>>>(a);
+  wkv_out_kernel<N, C><<<grid, kThreads, out_smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -705,30 +733,43 @@ cudaError_t launch_step(const Args& a, cudaStream_t stream) {
 }
 
 template <int N>
-cudaError_t launch(const Args& a, int body, cudaStream_t stream) {
-  return body == 1 ? launch_step<N>(a, stream) : launch_chunked<N>(a, stream);
+cudaError_t launch(const Args& a, int body, int chunk, cudaStream_t stream) {
+  if (body == 1) return launch_step<N>(a, stream);
+  return chunk == 32 ? launch_chunked<N, 32>(a, stream) : launch_chunked<N, 64>(a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Steps per chunk of the chunked body: the wrapper sizes its scratch by it.
-int repro_linear_scan_chunk() { return kChunk; }
+// Shared memory of the chunked body's larger CTA at head size N and chunk
+// `chunk` (the output kernel's), or -1 where (N, chunk) is not built.
+int repro_linear_scan_smem(int N, int chunk) {
+#define REPRO_WKV_SMEM(N_, C_) \
+  if (N == N_ && chunk == C_) return (int)chunked_smem_bytes<N_, C_>();
+#define REPRO_WKV_CHUNKS(X, N_) X(N_, 32) X(N_, 64)
+  REPRO_WKV_CHUNKS(REPRO_WKV_SMEM, 16)
+  REPRO_WKV_CHUNKS(REPRO_WKV_SMEM, 32)
+  REPRO_WKV_CHUNKS(REPRO_WKV_SMEM, 64)
+#undef REPRO_WKV_CHUNKS
+#undef REPRO_WKV_SMEM
+  return -1;
+}
 
 // Launches on `stream` and returns cudaGetLastError() of the launches (0 on
 // success).  All tensors f32, contiguous and 16-byte aligned; N in {16, 32,
-// 64}.  `body` 0 runs the chunked body, the default at every shape; 1 runs
-// the step body, only when the caller asks for it (to time the two).
-// The chunked body needs `scratch` of B * nc * H * N * (N + 1) floats,
-// nc = ceil(S / repro_linear_scan_chunk()), none when nc == 1; the step
-// body ignores it.
+// 64}.  `body` 0 runs the chunked body, the default at every shape, in
+// chunks of `chunk` steps (32 or 64; any other is refused); 1 runs the step
+// body, only when the caller asks for it (to time the two), and ignores the
+// chunk.  The chunked body needs `scratch` of B * nc * H * N * (N + 1)
+// floats, nc = ceil(S / chunk), none when nc == 1; the step body ignores it.
 int repro_linear_scan_fwd(const void* r, const void* k, const void* v, const void* log_w,
                           const void* u, const void* s0, void* y, void* s_out, void* scratch,
-                          int B, int S, int H, int N, int body, void* stream) {
+                          int B, int S, int H, int N, int body, int chunk, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
   if (body != 0 && body != 1) return cudaErrorInvalidValue;
-  const int nc = (S + kChunk - 1) / kChunk;
+  if (chunk != 32 && chunk != 64) return cudaErrorInvalidValue;
+  const int nc = (S + chunk - 1) / chunk;
   if (body == 0 && nc > 1 && scratch == nullptr) return cudaErrorInvalidValue;
   float* states = static_cast<float*>(scratch);
   float* decay = states ? states + static_cast<long long>(B) * nc * H * N * N : nullptr;
@@ -739,9 +780,9 @@ int repro_linear_scan_fwd(const void* r, const void* k, const void* v, const voi
                states,                        decay,
                B, S, H, nc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N == 16) return launch<16>(a, body, st);
-  if (N == 32) return launch<32>(a, body, st);
-  if (N == 64) return launch<64>(a, body, st);
+  if (N == 16) return launch<16>(a, body, chunk, st);
+  if (N == 32) return launch<32>(a, body, chunk, st);
+  if (N == 64) return launch<64>(a, body, chunk, st);
   return cudaErrorInvalidValue;
 }
 

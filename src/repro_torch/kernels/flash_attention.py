@@ -14,6 +14,12 @@ The kernel has three bodies, chosen by shape and dtype in C
 ``flash_attention_split_plain``, computes the same partials and merges them
 with the merge kernel's formula, so the CPU tests hold the split algorithm
 against the reference.
+
+Tiles: every body runs 64-row q tiles (one warpgroup's ``wgmma`` M).  The
+key tile is 64 by default, and the ``wgmma`` body also takes 128 at Dv <=
+128 (``key_tiles``); a tile the chosen body lacks raises on a CUDA tensor,
+and the plain version on a CPU tensor ignores the tile.  Which tile to run
+at a shape is ``kernels/autotune.py``'s choice, through ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ launches = 0
 SUPPORTED_DV = (16, 32, 64, 80, 96, 128, 256)
 MAX_D = 256
 BLOCK_Q = BLOCK_K = 64
+#: key tiles of the wgmma body at Dv <= 128 (``REPRO_FA_WG_CASES`` in C)
+WGMMA_BLOCK_K = (64, 128)
 #: SMs of an H100 SXM: the split plan aims at one wave of this many CTAs
 N_SM = 132
 LOG2E = 1.4426950408889634
@@ -50,10 +58,13 @@ def _kernel():
         lib = build.load("flash_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.repro_flash_attention_fwd.argtypes = (
-            [p, p, p, p, p] + [i] * 11 + [f, f, i, p, i, p, i, p, p, p])
+            [p, p, p, p, p] + [i] * 11 + [f, f, i, i, p, i, p, i, p, p, p])
         lib.repro_flash_attention_fwd.restype = ctypes.c_int
         lib.repro_flash_attention_select.argtypes = [i, i, i, f, i]
         lib.repro_flash_attention_select.restype = ctypes.c_int
+        for fn in (lib.repro_flash_attention_smem,
+                   lib.repro_flash_attention_ctas):
+            fn.argtypes, fn.restype = [i, i, i], ctypes.c_int
         _lib = lib
     return _lib
 
@@ -70,6 +81,34 @@ def select_body(dtype: torch.dtype, D: int, Dv: int, scale: float,
         raise ValueError(f"no {body or 'flash'} body for {dtype}, D={D}, "
                          f"Dv={Dv}, scale={scale}")
     return BODY_NAMES[code]
+
+
+def body_of(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """The body the C entry selects for (dtype, D, Dv) at scale > 0
+    (``repro_flash_attention_select``), without loading the kernel: the
+    tuner's fit model reads it on the host."""
+    if dtype == torch.float32:
+        return "fma"
+    wgmma = D % 64 == 0 and 0 < D <= MAX_D and Dv in (64, 128, 256)
+    return "wgmma" if dtype == torch.bfloat16 and wgmma else "mma"
+
+
+def key_tiles(body: str, Dv: int) -> tuple[int, ...]:
+    """The key tiles ``body`` is built for at value head dim ``Dv``."""
+    return WGMMA_BLOCK_K if body == "wgmma" and Dv <= 128 else (BLOCK_K,)
+
+
+def smem_bytes(D: int, Dv: int, block_k: int) -> int:
+    """The C entry's shared memory of one CTA of the bf16 body that (D, Dv)
+    selects at key tile ``block_k`` (-1: a tile it lacks); the tuner's fit
+    model is checked against it on the card."""
+    return _kernel().repro_flash_attention_smem(D, Dv, block_k)
+
+
+def wgmma_ctas(D: int, Dv: int, block_k: int) -> int:
+    """The wgmma body's CTAs an SM at (D, Dv, block_k): its launch bound
+    in C (-1: a tile it lacks)."""
+    return _kernel().repro_flash_attention_ctas(D, Dv, block_k)
 
 
 class SplitPlan(NamedTuple):
@@ -154,11 +193,12 @@ def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, causal: bool = True,
                                 window: int = 0, scale: float | None = None,
                                 q_offset: int = 0, out_scale: float = 1.0,
-                                residual: torch.Tensor | None = None
-                                ) -> torch.Tensor:
+                                residual: torch.Tensor | None = None,
+                                block_k: int = BLOCK_K) -> torch.Tensor:
     """The wgmma body's algorithm in plain PyTorch, f32: each work item of
-    ``split_plan`` computes its rows' unnormalised o, max (log2 units, -inf
-    when it saw no key) and sum l over its key tiles; an unsplit item
+    ``split_plan`` (at key tile ``block_k``) computes its rows' unnormalised
+    o, max (log2 units, -inf when it saw no key) and sum l over its key
+    tiles; an unsplit item
     normalises at once, a split unit merges its parts in order:
     M = max_p m_p, w_p = 2^(m_p - M), out = sum w_p o_p / sum w_p l_p, and
     l == 0 (no part saw a key) gives 0.  Then out * out_scale + residual."""
@@ -167,7 +207,8 @@ def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
     G = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     sl2 = scale * LOG2E
-    plan = split_plan(B, Sq, Skv, Hq, bool(causal), int(window), int(q_offset))
+    plan = split_plan(B, Sq, Skv, Hq, bool(causal), int(window), int(q_offset),
+                      block_k=block_k)
     out = torch.zeros((B, Sq, Hq, Dv), dtype=torch.float32, device=q.device)
     part_o = torch.zeros((plan.n_slots, BLOCK_Q, Dv), device=q.device)
     part_m = torch.full((plan.n_slots, BLOCK_Q), -math.inf, device=q.device)
@@ -175,7 +216,7 @@ def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
     for b, h, qt, kt0, kt1, slot in plan.items:
         q0 = qt * BLOCK_Q
         nr = min(Sq, q0 + BLOCK_Q) - q0
-        k0, k1 = kt0 * BLOCK_K, min(kt1 * BLOCK_K, Skv)
+        k0, k1 = kt0 * block_k, min(kt1 * block_k, Skv)
         o = torch.zeros((nr, Dv), device=q.device)
         m = torch.full((nr,), -math.inf, device=q.device)
         l = torch.zeros((nr,), device=q.device)
@@ -254,10 +295,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None, q_offset: int = 0,
                     out_scale: float = 1.0,
                     residual: torch.Tensor | None = None,
+                    block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
                     _body: str | None = None) -> torch.Tensor:
     """q: (B,Sq,Hq,D); k: (B,Skv,Hkv,D); v: (B,Skv,Hkv,Dv); residual:
     (B,Sq,Hq,Dv) or None -> (B,Sq,Hq,Dv) in q's dtype.  Positions are
     contiguous: pos_q = q_offset + arange(Sq), pos_k = arange(Skv).
+
+    ``block_q`` / ``block_k``: the tile, on a CUDA tensor one the chosen
+    body is built for (``key_tiles``; q tiles are 64 rows) or a
+    ``ValueError``; the plain version on a CPU tensor ignores it.
 
     ``_body`` ("mma" or "wgmma") asks the CUDA kernel for one body, so that
     a check can time the bodies against each other; callers leave it None."""
@@ -278,12 +324,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else D ** -0.5
     lib = _kernel()
     body = select_body(q.dtype, D, Dv, scale, _body)
+    if block_q != BLOCK_Q or block_k not in key_tiles(body, Dv):
+        raise ValueError(f"the {body} body has no ({block_q}, {block_k}) tile "
+                         f"at D={D}, Dv={Dv}: q tiles of {BLOCK_Q} rows, key "
+                         f"tiles {key_tiles(body, Dv)}")
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     items = merges = part_o = part_ml = None
     n_items = n_merges = 0
     if body == "wgmma":
         plan, items_t, merges_t = _device_plan(
-            (B, Sq, Skv, Hq, bool(causal), int(window), int(q_offset)), q.device)
+            (B, Sq, Skv, Hq, bool(causal), int(window), int(q_offset), BLOCK_Q,
+             int(block_k)), q.device)
         n_items, n_merges = len(plan.items), len(plan.merges)
         items, merges = items_t.data_ptr(), merges_t.data_ptr()
         if n_merges:  # one f32 scratch: o (slots, 64, Dv), then (m, l) (slots, 2, 64)
@@ -299,8 +350,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             residual.data_ptr() if residual is not None else None,
             out.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Skv, Hq, Hkv, D, Dv,
             int(causal), int(window), int(q_offset), float(scale),
-            float(out_scale), _BODY_REQUEST[_body], items, n_items, merges,
-            n_merges, part_o, part_ml, stream)
+            float(out_scale), _BODY_REQUEST[_body], int(block_k), items,
+            n_items, merges, n_merges, part_o, part_ml, stream)
 
     if q.device.index == torch.cuda.current_device():
         err = launch()

@@ -10,8 +10,9 @@ interface.  The kernel's source carries the note on what bounds it on the
 card and what its design does about it.
 
 The kernel has two bodies.  The chunked body, the default at every shape,
-runs chunks of ``KERNEL_CHUNK`` steps as 3xTF32 tensor-core products in
-three launches (chunk products, state scan, output); its plain twin,
+runs chunks of ``KERNEL_CHUNK`` steps (or 32, on request: ``chunk=`` takes
+either of ``KERNEL_CHUNKS``) as 3xTF32 tensor-core products in three
+launches (chunk products, state scan, output); its plain twin,
 ``linear_scan_chunked_plain``, computes the same passes with the same
 sub-chunk anchors, zero-filled tail and emulated 3xTF32 split, so the CPU
 tests hold the algorithm against the references.  The step body walks one
@@ -32,36 +33,44 @@ from repro_torch.kernels import build
 launches = 0
 
 SUPPORTED_N = (16, 32, 64)
-#: steps per chunk of the chunked body (``repro_linear_scan_chunk`` in C)
+#: steps per chunk of the chunked body: the default, and every chunk it is
+#: built for (``REPRO_WKV_CHUNKS`` in C)
 KERNEL_CHUNK = 64
+KERNEL_CHUNKS = (32, 64)
 #: query rows per sub-chunk: the unit of the off-diagonal anchors
 SUB_CHUNK = 16
 LOG2E = 1.4426950408889634
 #: body requests of the C entry
 BODIES = {"chunked": 0, "step": 1}
-_fwd = None
+_lib = None
 
 
 def _kernel():
-    global _fwd
-    if _fwd is None:
+    global _lib
+    if _lib is None:
         lib = build.load("linear_scan")
-        if lib.repro_linear_scan_chunk() != KERNEL_CHUNK:
-            raise RuntimeError("linear_scan: the kernel's chunk is not "
-                               f"{KERNEL_CHUNK}")
-        fn = lib.repro_linear_scan_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _fwd = fn
-    return _fwd
+        lib.repro_linear_scan_fwd.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.repro_linear_scan_fwd.restype = ctypes.c_int
+        lib.repro_linear_scan_smem.argtypes = [i, i]
+        lib.repro_linear_scan_smem.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
-def scratch_floats(B: int, S: int, H: int, N: int) -> int:
+def smem_bytes(N: int, chunk: int) -> int:
+    """The C entry's shared memory of the chunked body's larger CTA at head
+    size N and ``chunk`` (-1: not built); the tuner's fit model is checked
+    against it on the card."""
+    return _kernel().repro_linear_scan_smem(N, chunk)
+
+
+def scratch_floats(B: int, S: int, H: int, N: int,
+                   chunk: int = KERNEL_CHUNK) -> int:
     """f32 scratch of the chunked body: each chunk's state update, then its
     start state (B, nc, H, N, N), and its decay e^{p_last} (B, nc, H, N);
     none for a single chunk, which the output kernel finishes alone."""
-    nc = math.ceil(S / KERNEL_CHUNK)
+    nc = math.ceil(S / chunk)
     return B * nc * H * N * (N + 1) if nc > 1 else 0
 
 
@@ -151,10 +160,11 @@ def _cumsum_log2(lw: torch.Tensor) -> torch.Tensor:
 def linear_scan_chunked_plain(r: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, log_w: torch.Tensor,
                               u: torch.Tensor, s0: torch.Tensor, *,
+                              chunk: int = KERNEL_CHUNK,
                               trace: dict | None = None
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked body's algorithm on plain tensors, pass for pass: chunks
-    of ``KERNEL_CHUNK`` steps zero-filled past S (log_w = 0, k = 0), the
+    of ``chunk`` steps zero-filled past S (log_w = 0, k = 0), the
     chunk products U = k_hat^T V and decays g = e^{p_last}, the state scan
     S <- g * S + U that yields each chunk's start state, then per chunk
     y = (r e^{p_prev}) S_start + A V, with A's diagonal 16 x 16 tiles
@@ -166,7 +176,7 @@ def linear_scan_chunked_plain(r: torch.Tensor, k: torch.Tensor,
     receives ``max_exp_arg``, the largest argument of any exp computed, and
     ``start_states`` (B, nc, H, N, N), each chunk's start state."""
     B, S, H, N = r.shape
-    C, L = KERNEL_CHUNK, SUB_CHUNK
+    C, L = chunk, SUB_CHUNK
     nc = -(-S // C)
     max_arg = [-math.inf]
 
@@ -227,11 +237,12 @@ def linear_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
         y_t = r_t . (S_{t-1} + (u*k_t) v_t^T);  S_t = diag(e^{log_w_t}) S_{t-1} + k_t v_t^T
 
-    ``chunk`` is the plain version's chunk length on a CPU tensor; the
-    kernel's chunked body always works in chunks of ``KERNEL_CHUNK`` = 64
-    steps and masks a ragged last chunk itself.  ``_body="step"`` asks the
-    kernel for its per-step body, so that a check can time the two bodies;
-    callers leave it at the default."""
+    ``chunk`` is the chunk length: the plain version's on a CPU tensor, and
+    on a CUDA tensor the chunked body's, one of ``KERNEL_CHUNKS`` (32 or 64
+    steps; the kernel masks a ragged last chunk itself) or a
+    ``ValueError``.  ``_body="step"`` asks the kernel for its per-step
+    body, so that a check can time the two bodies; callers leave it at the
+    default."""
     global launches
     _check(r, k, v, log_w, u, s0)
     if chunk < 1:
@@ -242,19 +253,22 @@ def linear_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return linear_scan_plain(r, k, v, log_w, u, s0, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"no linear_scan kernel for device {r.device}")
+    if chunk not in KERNEL_CHUNKS:
+        raise ValueError(f"the chunked body has no {chunk}-step chunk "
+                         f"(chunks {KERNEL_CHUNKS})")
     B, S, H, N = r.shape
     y = torch.empty_like(r)
     s_fin = torch.empty_like(s0)
-    n_scratch = scratch_floats(B, S, H, N) if _body == "chunked" else 0
+    n_scratch = scratch_floats(B, S, H, N, chunk) if _body == "chunked" else 0
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=r.device)
                if n_scratch else None)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        log_w.data_ptr(), u.data_ptr(), s0.data_ptr(),
-                        y.data_ptr(), s_fin.data_ptr(),
-                        scratch.data_ptr() if scratch is not None else None,
-                        B, S, H, N, BODIES[_body], stream)
+        err = _kernel().repro_linear_scan_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            B, S, H, N, BODIES[_body], int(chunk), stream)
     if err:
         raise RuntimeError(f"linear_scan kernel launch failed ({_body} body): "
                            f"CUDA error {err}")

@@ -1,24 +1,121 @@
 """Dispatch for the port's kernels.
 
 ``flash_attention`` is the hand-written Hopper kernel's wrapper
-(``kernels/flash_attention.py``): 64-row q tiles against 64-key tiles, on
-the wgmma body for bf16 head dims that are multiples of 64 (with the
-split-KV plan for short prompts), the mma.sync body for other bf16 head
-dims and the FMA body for f32; a shape-keyed tuner for it is later work.
-``linear_scan`` is the RWKV-6 WKV scan kernel's wrapper
-(``kernels/linear_scan.py``): on a CUDA tensor it runs the chunked body
-(64-step chunks as 3xTF32 tensor-core products, three launches) at every
-shape, and the per-step body only when a caller asks for it with
-``_body="step"``; a failed launch raises, nothing falls back.  ``paged_attention`` is a gather plus
-the plain ``attention_core``, as in the JAX package -- not a kernel.
+(``kernels/flash_attention.py``): 64-row q tiles against 64- or 128-key
+tiles, on the wgmma body for bf16 head dims that are multiples of 64 (with
+the split-KV plan for short prompts), the mma.sync body for other bf16
+head dims and the FMA body for f32.  ``linear_scan`` is the RWKV-6 WKV scan
+kernel's wrapper (``kernels/linear_scan.py``): on a CUDA tensor it runs the
+chunked body (32- or 64-step chunks as 3xTF32 tensor-core products, three
+launches) at every shape, and the per-step body only when a caller asks for
+it with ``_body="step"``; a failed launch raises, nothing falls back.
+``paged_attention`` is a gather plus the plain ``attention_core``, as in
+the JAX package -- not a kernel.
+
+Tile selection (``kernels/autotune.py``), with the reference's rules
+(``repro/kernels/ops.py``):
+
+* explicit ``block_q=`` / ``block_k=`` / ``chunk=`` always win and never
+  consult the tuner;
+* ``tuned=True`` resolves the shape/dtype/backend key against the autotune
+  cache: a hit (including entries shipped in the committed baseline store)
+  costs zero timing work; a miss on a CUDA tensor times each candidate
+  once and persists the winner; a CPU tensor (and a fake tensor) resolves
+  through the heuristic with zero timing;
+* ``tuned=False`` (the default, and every model's call) keeps the fixed
+  defaults.  The port's are ``DEFAULT_BLOCK_Q = DEFAULT_BLOCK_K = 64`` and
+  ``DEFAULT_CHUNK = 64``: the Hopper kernels' first tiles, not the JAX
+  package's 128 x 128 TPU tiles.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
-from repro_torch.kernels.linear_scan import linear_scan  # noqa: F401
+from repro_torch.kernels import autotune as _at
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import linear_scan as _ls
 from repro_torch.utils import take_fill
+
+DEFAULT_BLOCK_Q = _fa.BLOCK_Q
+DEFAULT_BLOCK_K = _fa.BLOCK_K
+DEFAULT_CHUNK = _ls.KERNEL_CHUNK
+
+
+def _can_time(*tensors) -> bool:
+    """Real tensors on the card only: the dry run's fake tensors and the
+    host's plain versions have no tile to time."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return all(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+               and not is_fake(t) for t in tensors)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    q_offset=0, block_q=None, block_k=None, tuned=False,
+                    out_scale=1.0, residual=None):
+    bq, bk = block_q, block_k
+    if tuned and (bq is None or bk is None):
+        cfg = _resolve_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)
+        bq = bq if bq is not None else cfg["block_q"]
+        bk = bk if bk is not None else cfg["block_k"]
+    return _fa.flash_attention(
+        q, k, v, causal=causal, window=window, scale=scale,
+        q_offset=q_offset, out_scale=out_scale, residual=residual,
+        block_q=bq if bq is not None else DEFAULT_BLOCK_Q,
+        block_k=bk if bk is not None else DEFAULT_BLOCK_K)
+
+
+def _resolve_attention(q, k, v, *, causal, window, q_offset, scale):
+    B, Sq, Hq, D = q.shape
+    _, Skv, _, Dv = v.shape
+
+    def measure(cfg):
+        return _at.measure_us(lambda: _fa.flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            q_offset=q_offset, block_q=cfg["block_q"],
+            block_k=cfg["block_k"]))
+
+    return _resolve(
+        _at.attention_key(q.shape, k.shape, v.shape, q.dtype, causal=causal,
+                          window=window, backend=_at.backend_tag(q.device)),
+        lambda: _at.attention_candidates(Sq, Skv, D, Dv, q.dtype),
+        lambda: _at.heuristic_attention(Sq, Skv, D, Dv, q.dtype),
+        measure, (q, k, v))
+
+
+def linear_scan(r, k, v, log_w, u, s0, *, chunk=None, tuned=False):
+    c = chunk
+    if tuned and c is None:
+        c = _resolve_scan(r, k, v, log_w, u, s0)["chunk"]
+    return _ls.linear_scan(r, k, v, log_w, u, s0,
+                           chunk=c if c is not None else DEFAULT_CHUNK)
+
+
+def _resolve_scan(r, k, v, log_w, u, s0):
+    B, S, H, N = r.shape
+
+    def measure(cfg):
+        return _at.measure_us(lambda: _ls.linear_scan(
+            r, k, v, log_w, u, s0, chunk=cfg["chunk"])[0])
+
+    return _resolve(
+        _at.scan_key(r.shape, r.dtype, backend=_at.backend_tag(r.device)),
+        lambda: _at.scan_candidates(S, N),
+        lambda: _at.heuristic_scan(S, N),
+        measure, (r, k, v, log_w, u, s0))
+
+
+def _resolve(key, candidates, heuristic, measure, tensors) -> dict:
+    """The tile for ``key``: on real CUDA tensors the tuner's timed entry,
+    timing each candidate once on a miss (``Autotuner.tune`` returns a
+    timed hit as it is and re-tunes a heuristic placeholder); elsewhere,
+    or with no candidate, a hit or the heuristic with zero timing."""
+    tuner = _at.get_tuner()
+    cands = candidates() if _can_time(*tensors) else []
+    if cands:
+        return tuner.tune(key, cands, measure, mode="cuda")["config"]
+    return tuner.resolve(key, heuristic)
 
 
 def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

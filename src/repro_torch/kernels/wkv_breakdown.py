@@ -30,10 +30,10 @@ _RETURN = "  if (a.S > 0) return;\n"  # taken at run time, so nothing is pruned
 _DRAIN = "  cp_async_wait_all();\n  __syncthreads();\n" + _RETURN
 #: variant -> (source text the early return follows, text inserted after it)
 STOPS = {
-    "empty": ("  OutSmem<N>& sm = *reinterpret_cast<OutSmem<N>*>(smem_raw);\n", _RETURN),
+    "empty": ("  OutSmem<N, C>& sm = *reinterpret_cast<OutSmem<N, C>*>(smem_raw);\n", _RETURN),
     "loads": ("  cp_async_wait_one();\n  if (threadIdx.x < N) sm.pp[0][threadIdx.x] = 0.f;\n"
               "  __syncthreads();\n", _DRAIN),
-    "cumsum": ("  cumsum_log2<N>(&sm.pp[1][0], Ld<N>::kRow);\n", _DRAIN),
+    "cumsum": ("  cumsum_log2<N, C>(&sm.pp[1][0], Ld<N>::kRow);\n", _DRAIN),
     "tiles": ("  cp_async_wait_all();  // v and the start state\n  __syncthreads();\n", _RETURN),
 }
 PHASES = [("launch", None, "empty"), ("loads", "empty", "loads"),
@@ -67,7 +67,7 @@ def build_variants() -> dict[str, ctypes.CDLL]:
 def _caller(lib: ctypes.CDLL, args: list[torch.Tensor]):
     fn = lib.repro_linear_scan_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 5 + [p]
+    fn.argtypes = [p] * 9 + [i] * 6 + [p]
     fn.restype = ctypes.c_int
     B, S, H, N = args[0].shape
     y, s_fin = torch.empty_like(args[0]), torch.empty_like(args[5])
@@ -77,7 +77,8 @@ def _caller(lib: ctypes.CDLL, args: list[torch.Tensor]):
     def call():
         err = fn(*(t.data_ptr() for t in args), y.data_ptr(), s_fin.data_ptr(),
                  scratch.data_ptr() if scratch is not None else None, B, S, H, N,
-                 ls.BODIES["chunked"], torch.cuda.current_stream().cuda_stream)
+                 ls.BODIES["chunked"], ls.KERNEL_CHUNK,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
     return call

@@ -35,7 +35,7 @@ import math
 import torch
 
 from repro_torch.models import LanguageModel
-from repro_torch.utils import Spec, take_fill, tree_map
+from repro_torch.utils import Spec, take_fill, to_device, tree_map
 
 
 def _pages_dim(spec: Spec) -> int | None:
@@ -144,7 +144,7 @@ class PagedKVCache:
         view fills with init values and ``_scatter_impl`` drops it, so a
         fixed group size keeps every chunk call the same shape."""
         G = len(slots)
-        slot_idx = torch.tensor(slots, dtype=torch.long, device=self.device)
+        slot_idx = to_device(slots, torch.long, self.device)
         flat = rows.reshape(-1)
 
         def g(leaf: torch.Tensor, spec: Spec) -> torch.Tensor:
@@ -166,9 +166,8 @@ class PagedKVCache:
         write the real members only (``slots < n_slots``)."""
         G = len(slots)
         real = [i for i, s in enumerate(slots) if s < self.n_slots]
-        src = torch.tensor(real, dtype=torch.long, device=self.device)
-        dst = torch.tensor([slots[i] for i in real], dtype=torch.long,
-                           device=self.device)
+        src = to_device(real, torch.long, self.device)
+        dst = to_device([slots[i] for i in real], torch.long, self.device)
         flat = rows.reshape(-1).long()
 
         def s(leaf: torch.Tensor, v: torch.Tensor, spec: Spec) -> None:

@@ -10,7 +10,10 @@ interface:
     ``drain_every`` ticks is a Python loop of device calls with on-device
     argmax and an on-device token ring, and the host reads the device only
     in ``_drain``, once per block.  Completion is count-based, so the host
-    schedules without reading the device between drains.
+    schedules without reading the device between drains.  On a card the
+    block is one CUDA graph (``_tick_block``), and the prefill rounds move
+    their host data without a stream sync (``utils.to_device``), so the
+    host prepares the next rounds while the card decodes.
 
 ``ContinuousBatcher`` (the dense reference)
     Lockstep batcher over dense ``(n_slots, max_len)`` caches with full,
@@ -42,7 +45,7 @@ import torch
 from repro_torch.configs import list_configs
 from repro_torch.launch.paged_kv import PagedKVCache, decompose
 from repro_torch.models import LanguageModel
-from repro_torch.utils import Spec, sync, take_fill, tree_map
+from repro_torch.utils import Spec, sync, take_fill, to_device, tree_map
 
 
 @dataclasses.dataclass
@@ -106,6 +109,10 @@ class PagedServingEngine:
         self.out_buf = torch.zeros((B, drain_every), dtype=i32, device=dev)
         self.out_cnt = torch.zeros((B,), dtype=i32, device=dev)
         self._rows = torch.arange(B, device=dev)
+        # the decode block as a CUDA graph: warmed on its own stream by the
+        # first block, captured on it by the second (_tick_block)
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._graph_stream = None
 
         # host mirrors (decode emission is deterministic: one token per
         # active slot per tick, so no device reads are needed to schedule)
@@ -125,8 +132,38 @@ class PagedServingEngine:
 
     # ------------------------------------------------------- device programs
     def _tick_block(self) -> None:
-        """``drain_every`` decode ticks with no host read: argmax, the token
-        ring and the per-slot counters all stay on the device."""
+        """``drain_every`` decode ticks with no host read.  On a card the
+        block runs as one CUDA graph: the first block runs eagerly on the
+        graph's stream (cuBLAS and the allocator warm up), the second is
+        captured there and replayed, and every later block replays it.  A
+        replay launches the captured kernels on the same tensors -- the
+        weights, the cache pools, the block table and the slot state, all
+        updated in place -- without the host's ~2,000 launches a tick,
+        which held a 64-slot tick to a 4-slot one's wall (ROADMAP fault
+        6).  Decode reaches no hand-written kernel, so no launch counter
+        misses a replay."""
+        if self.device.type != "cuda":
+            self._decode_ticks()
+            return
+        if self._graph is None:
+            if self._graph_stream is None:  # first block: eager, warming
+                self._graph_stream = torch.cuda.Stream(self.device)
+                self._graph_stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self._graph_stream):
+                    self._decode_ticks()
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._graph_stream)
+                return
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._graph_stream):
+                self._decode_ticks()
+            self._graph = graph
+        self._graph.replay()
+
+    def _decode_ticks(self) -> None:
+        """The block's device work: argmax, the token ring and the per-slot
+        counters stay on the device, each written in place."""
         b = self._rows
         last, pos, remaining = self.last_token, self.pos, self.remaining
         out_buf, out_cnt = self.out_buf, self.out_cnt
@@ -143,12 +180,10 @@ class PagedServingEngine:
             col = torch.where(emit, out_cnt, 0).long()
             out_buf[b, col] = torch.where(emit, last, out_buf[b, col])
             inc = emit.to(torch.int32)
-            last = torch.where(emit, nxt, last)
-            pos = pos + inc
-            remaining = remaining - inc
-            out_cnt = out_cnt + inc
-        self.last_token, self.pos, self.remaining = last, pos, remaining
-        self.out_cnt = out_cnt
+            last.copy_(torch.where(emit, nxt, last))
+            pos.add_(inc)
+            remaining.sub_(inc)
+            out_cnt.add_(inc)
 
     def _chunk(self, slots: list[int], tokens: torch.Tensor,
                start: torch.Tensor) -> torch.Tensor:
@@ -156,7 +191,7 @@ class PagedServingEngine:
         Padded group entries (slot == n_slots, start == -1) gather init
         values, compute garbage, and are never written back."""
         kv = self.kv
-        slot_idx = torch.tensor(slots, dtype=torch.long, device=self.device)
+        slot_idx = to_device(slots, torch.long, self.device)
         rows = take_fill(kv.table, slot_idx, 0, kv.n_pages)
         view = kv._gather_impl(kv.cache, rows, slots)
         logits, view = self.model.prefill_chunk(self.params, {"tokens": tokens},
@@ -219,8 +254,8 @@ class PagedServingEngine:
             starts[i] = st.start
             slots[i] = slot
         self.stats_counters["bytes_to_device"] += int(tokens.nbytes)
-        logits = self._chunk(slots, torch.from_numpy(tokens).to(self.device),
-                             torch.from_numpy(starts).to(self.device))
+        logits = self._chunk(slots, to_device(tokens, torch.int32, self.device),
+                             to_device(starts, torch.int32, self.device))
         self.stats_counters["prefill_rounds"] += 1
         self.stats_counters["prefill_chunks"] += len(members)
         for i, (slot, st) in enumerate(members):
@@ -250,7 +285,7 @@ class PagedServingEngine:
                 self.kv.free(slot)
                 self._active.discard(slot)
                 self._finished.discard(slot)
-        self.out_cnt = torch.zeros_like(self.out_cnt)
+        self.out_cnt.zero_()
 
     # ------------------------------------------------------------------ run
     def run(self, requests: list[Request]) -> dict:

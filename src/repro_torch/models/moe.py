@@ -39,8 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (all_gather_tiled,
                                                  all_to_all_tiled, pmean)
 from repro_torch.distributed.sharding import (constrain, current_mesh_info,
-                                              einsum, matmul, shard_map,
-                                              shard_map_specs)
+                                              einsum, is_dtensor, matmul,
+                                              shard_map, shard_map_specs)
 from repro_torch.models.layers import Param, _act, dense_init, torch_dtype
 
 _SMALL_T = 4096  # global token threshold below which the dense path wins
@@ -66,6 +66,16 @@ def init_moe(gen: torch.Generator | None, cfg: ModelConfig, *, stack: int = 0,
     }
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n).to(dtype)``; on plain tensors without its range
+    check, whose ``.item()`` reads would stop a decode step's CUDA graph
+    capture (``PagedServingEngine._tick_block``; top-k indices are in
+    range).  A DTensor (the dense path under a mesh) keeps ``F.one_hot``."""
+    if is_dtensor(idx):
+        return F.one_hot(idx, n).to(dtype)
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _route(router_w: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig):
     """(gates (T, K) f32, expert indices (T, K), aux loss) for x2d (T, d).
     ``torch.topk`` and ``lax.top_k`` may order equal probabilities
@@ -76,7 +86,7 @@ def _route(router_w: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     e = cfg.n_experts
     me = probs.mean(0)  # mean router probability per expert
-    fe = F.one_hot(idx[:, 0], e).float().mean(0)  # top-1 fraction
+    fe = _one_hot(idx[:, 0], e, torch.float32).mean(0)  # top-1 fraction
     aux = e * (fe * me).sum()
     return gates, idx, aux
 
@@ -97,7 +107,7 @@ def _moe_dense(p: dict, cfg: ModelConfig,
     h = constrain(_act(cfg, h) * u, None, "experts", None)
     y_e = einsum("tef,efd->ted", h, p["w_down"].to(cdt))
     y_e = constrain(y_e, None, "experts", None)
-    sel = F.one_hot(idx, cfg.n_experts).to(cdt)  # (T, K, E)
+    sel = _one_hot(idx, cfg.n_experts, cdt)  # (T, K, E)
     w_comb = einsum("tk,tke->te", gates.to(cdt), sel)
     y = einsum("te,ted->td", w_comb, y_e)
     return y.reshape(B, S, d), aux

@@ -73,6 +73,18 @@ def take_fill(x: torch.Tensor, idx: torch.Tensor, dim: int, fill,
     return torch.where(valid.view(shape), out, fill)
 
 
+def to_device(data, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host data (a list or numpy array) as a tensor on ``device`` without
+    waiting for the device: on a card, through pinned memory and a
+    non-blocking copy (the caching host allocator keeps the pinned block
+    until the copy has run), where a pageable copy would synchronise the
+    stream first."""
+    t = torch.as_tensor(data, dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def sync(device: torch.device) -> None:
     """Wait for queued device work (host clocks around device work)."""
     if device.type == "cuda":

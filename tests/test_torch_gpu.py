@@ -15,7 +15,9 @@ Run on a machine with an NVIDIA card (no JAX needed there):
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Without a card every test skips: the kernel has no CPU mode.
+Without a card every test skips: the kernel has no CPU mode.  The second
+tiles (the flash kernel's 128-key tiles, the WKV scan's 32-step chunks) and
+the tuned dispatch run here too.
 """
 import math
 
@@ -416,6 +418,92 @@ def test_wkv_chunked_new_shape_adds_no_stream_sync():
         assert float((out - ref).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c for c in GPU_CASES
+                                  if c[-1] == torch.bfloat16 and c[6] <= 128
+                                  and c[5] % 64 == 0])
+def test_flash_128_key_tiles_match_plain_on_gpu(case):
+    """The wgmma body's 128-key tiles (``block_k=128``) on every GPU case
+    that body takes at Dv <= 128, against the plain version (2e-2 bf16),
+    with its split plan at 128 keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(case)
+    assert fa.select_body(q.dtype, case[5], case[6], case[5] ** -0.5) == "wgmma"
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, block_k=128, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_refuses_a_tile_its_body_lacks():
+    """A tile the chosen body is not built for raises on the card; nothing
+    runs 64 instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(GPU_CASES[0])  # D = Dv = 256: 64 keys only
+    before = fa.launches
+    for tile in (dict(block_k=128), dict(block_k=32), dict(block_q=128)):
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, k, v, **tile, **kw)
+    q, k, v, kw = _flash_inputs(GPU_CASES[1])  # D 80: the mma.sync body
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, block_k=128, **kw)
+    assert fa.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV_GPU_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_wkv_32_step_chunks_match_plain_on_gpu(case):
+    """The chunked body at 32-step chunks against the plain version (1e-4
+    relative), at every case the 64-step chunks run above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    args = _wkv_inputs(*case, seed=3)
+    before = ls.launches
+    y, s_fin = ls.linear_scan(*args, chunk=32)
+    torch.cuda.synchronize()
+    assert ls.launches == before + 1
+    y_ref, s_ref = ls.linear_scan_plain(*args)
+    for out, ref in ((y, y_ref), (s_fin, s_ref)):
+        assert bool(torch.isfinite(out).all())
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((out - ref).abs().max()) <= 1e-4 * scale
+    with pytest.raises(ValueError):
+        ls.linear_scan(*args, chunk=16)
+
+
+@pytest.mark.gpu
+def test_tuned_dispatch_times_once_then_hits(tmp_path, monkeypatch):
+    """``ops`` with ``tuned=True`` on the card: a miss times each candidate
+    once and persists the winner; the next call times nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    monkeypatch.setattr(at, "BASELINE_CACHE_PATH", str(tmp_path / "none.json"))
+    at.reset_tuner()
+    try:
+        q, k, v, kw = _flash_inputs(GPU_CASES[4])  # D = Dv = 128: two tiles
+        kw = dict(kw, residual=None, out_scale=1.0)
+        ops.flash_attention(q, k, v, tuned=True, **kw)
+        assert at.get_tuner().timing_calls == 2
+        out = ops.flash_attention(q, k, v, tuned=True, **kw)
+        assert at.get_tuner().timing_calls == 2
+        assert (tmp_path / "c.json").exists()
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+    finally:
+        at.reset_tuner()
+
+
 def _train(device, cfg, params, steps=3):
     """``steps`` train steps on ``device``: (losses, params after)."""
     opt = AdamW(OptConfig(peak_lr=3e-3, warmup_steps=2, decay_steps=10))
@@ -542,3 +630,77 @@ def test_commoncrawl_materializes_through_the_coordinator_on_card():
     assert {d for _, d in cc.device_calls} == {"cuda"}
     costs = report.by_asset_cost()
     assert costs["edges"] > 5 * (costs["nodes"] + costs["graph_aggr"])
+
+
+def _recording_engine(model, params, eager):
+    """A ``PagedServingEngine`` that keeps, at every drain, a copy of the
+    slot state, the block table and every cache leaf but the pools' last
+    page (the write-only trash page, which padded and inactive rows write
+    in no fixed order and nothing reads); ``eager`` runs the decode block
+    with ``_decode_ticks`` instead of the CUDA graph."""
+    from repro_torch.launch.paged_kv import _pages_dim
+    from repro_torch.launch.serve import PagedServingEngine
+
+    class Engine(PagedServingEngine):
+        def _tick_block(self):
+            if eager:
+                self._decode_ticks()
+            else:
+                super()._tick_block()
+
+        def _drain(self, now):
+            kv = self.kv
+            pages = tree_map(lambda leaf, spec: leaf if _pages_dim(spec) is None
+                             else leaf.narrow(_pages_dim(spec), 0, kv.n_pages),
+                             kv.cache, kv.specs)
+            self.snaps.append([t.clone() for t in (
+                self.out_buf, self.out_cnt, self.pos, self.last_token,
+                self.remaining, kv.table, *tree_leaves(pages))])
+            super()._drain(now)
+
+    eng = Engine(model, params, n_slots=3, max_len=128, page_size=16,
+                 chunk_max=32, drain_every=8, prefill_chunks_per_tick=4)
+    eng.snaps = []
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b", "h2o-danube-1.8b",
+                                  "recurrentgemma-9b", "minicpm3-4b",
+                                  "granite-moe-1b-a400m", "qwen2-vl-72b",
+                                  "deepseek-v2-236b"])
+def test_paged_graph_decode_matches_eager_bitwise(arch):
+    """The paged engine's decode block replayed as a CUDA graph against the
+    same block run eagerly, smoke size, bf16: nine requests on three slots,
+    arriving every 4 ticks, so slots and pages are freed and admitted again
+    after the capture (the second block).  Every drain's slot state, block
+    table and cache leaves (but the trash page), and every request's
+    tokens, are equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph is captured only there")
+    import numpy as np
+
+    from repro_torch.launch.serve import Request
+
+    cfg = smoke_config(arch)
+    model = LanguageModel(cfg, device="cuda")
+    params = model.init(0)
+    rng = np.random.RandomState(1)
+    trace = [(rng.randint(0, cfg.vocab_size, rng.randint(5, 60)).tolist(),
+              int(rng.randint(4, 24)), 4 * i) for i in range(9)]
+    runs = []
+    for eager in (False, True):
+        eng = _recording_engine(model, params, eager)
+        reqs = [Request(rid=i, prompt=p, max_new=n, arrival=a)
+                for i, (p, n, a) in enumerate(trace)]
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        assert (eng._graph is None) == eager
+        runs.append((eng.snaps, reqs))
+    (g_snaps, g_reqs), (e_snaps, e_reqs) = runs
+    assert any(r.admit_tick > 16 for r in g_reqs)
+    assert len(g_snaps) == len(e_snaps) >= 4
+    for a, b in zip(g_snaps, e_snaps):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert [r.out for r in g_reqs] == [r.out for r in e_reqs]
+    assert all(len(r.out) == r.max_new for r in g_reqs)
