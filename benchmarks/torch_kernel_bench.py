@@ -6,9 +6,9 @@ The port's copy of ``benchmarks/kernel_bench.py`` on
 same ``--smoke`` subset, the same JSON keys and the same sweep through
 ``Autotuner.tune(force=True)``, on the hand-written Hopper kernels.  The
 tiles are the kernels' own: 64-row q tiles against 64- or 128-key tiles on
-the flash kernel's ``wgmma`` body at Dv <= 128 (one tile on its ``mma.sync``
-body at D 80 and 96 and at Dv 256), 32- or 64-step chunks on the WKV
-chunked body; the default is 64 / 64 / 64 (``kernels/ops.py``).
+the flash kernel's ``wgmma`` body at Dv <= 128 (one tile at Dv 256 and on
+the ``mma.sync`` body), 32- or 64-step chunks on the WKV chunked body; the
+default is 64 / 64 / 64 (``kernels/ops.py``).
 
 For each config the sweep:
 

@@ -10,21 +10,29 @@ back to the CPU):
 2. build    -- every CUDA kernel of the port, compiled from this checkout,
                with ptxas' registers and spill stores of each function, read
                from the log kept beside each library (the flash kernel's
-               wgmma body at D = Dv = 256, 128 and 64, at both key tiles,
-               must report no spill), those of the second tiles (128-key
+               wgmma body at D = Dv = 256, 128, 80 and 64 and at D 96 /
+               Dv 64, at both key tiles, must report no spill), those of
+               the second tiles (128-key
                flash bodies, 32-step WKV chunks) logged apart; then the
                tuner's fit model (kernels/autotune.py) against the C
-               entries' shared-memory sizing of every tile, byte for byte;
+               entries' shared-memory sizing of every tile, byte for byte,
+               and the host's body choice against C's at every bf16 (D, Dv)
+               in multiples of 16 up to 256;
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the serving paths' shapes (flash at every prompt length of the
-               gemma-2b trace, and at the head dims of the model zoo), with
+               gemma-2b, h2o-danube-1.8b and minicpm3-4b traces, the short
+               ones split, and at the head dims of the model zoo), with
                the body that ran and its split-KV plan, its time, the plain
                version's, a PyTorch library call's (a yardstick the port
                never calls) where one exists, and the card's bound; at the
-               gemma-2b and deepseek-7b prefill shapes also the mma.sync
-               body, asked for through ``_body``, on the same inputs; at
-               minicpm3-4b's MLA prefill (MHA 40/40, D 96 / Dv 64: mma.sync)
-               and granite-moe-1b-a400m's (GQA 16/8, D 64: wgmma); at
+               gemma-2b, deepseek-7b, h2o-danube-1.8b (D 80, window) and
+               minicpm3-4b prefill shapes also the mma.sync body, asked for
+               through ``_body``, on the same inputs (danube's and
+               minicpm3's at every prompt length; after the serve phases
+               each body's time over one trace, layers x each length's
+               row, is logged); at minicpm3-4b's MLA
+               prefill (MHA 40/40, D 96 / Dv 64) and granite-moe-1b-a400m's
+               (GQA 16/8, D 64), both wgmma; at
                whisper-medium's non-causal encoder (B 4 x 1500 frames) and
                cross-attention (224, and 4 rows of 4, queries over 1500
                frames; each also held to the relative limit REL_TOL, which
@@ -68,7 +76,7 @@ back to the CPU):
                kernel) against token-by-token decode (the plain per-step
                recurrence), and greedy agreement of the two engines;
 8. serve    -- h2o-danube-1.8b (24 SWA layers, window 4096, GQA 32/8 at
-               head_dim 80: the flash kernel's mma.sync body with a window),
+               head_dim 80: the flash kernel's wgmma body with a window),
                recurrentgemma-9b (12 x (RG-LRU, RG-LRU, SWA) + 2 RG-LRU,
                window 2048, MQA at head_dim 256: the wgmma body with a
                window), deepseek-7b (30 MHA layers, head_dim 128: the
@@ -98,7 +106,8 @@ back to the CPU):
                4500-token prompt added for the sliding-window models)
                goes through both engines, with flash launches read
                around each: one per attention layer per full prefill in
-               the dense engine, none in the paged one;
+               the dense engine, none in the paged one, and the body each
+               dense launch ran (every bf16 one on wgmma);
 8b. whisper  -- whisper-medium at full width, no cut (no engine serves it, in
                the reference or here: neither passes encoder frames), through
                ``LanguageModel.prefill`` with 1500 seeded frames per row and
@@ -203,6 +212,7 @@ repository.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -266,8 +276,8 @@ KERNEL_CASES = [
     ("rgemma_swa_prefill", 1, 4500, 4500, 16, 1, 256, 256, True, 2048, 0,
      1.0, False, torch.bfloat16),
     # the MLA and MoE models' full prefill of the trace's 1000-token prompt:
-    # minicpm3-4b's MLA heads (D = nope + rope = 96, Dv 64: mma.sync) and
-    # granite-moe-1b-a400m's GQA heads (D 64: wgmma)
+    # minicpm3-4b's MLA heads (D = nope + rope = 96, Dv 64) and
+    # granite-moe-1b-a400m's GQA heads (D 64), both on wgmma
     ("minicpm3_mla_prefill", 1, 1000, 1000, 40, 40, 96, 64, True, 0, 0, 1.0,
      False, torch.bfloat16),
     ("granite_prefill", 1, 1000, 1000, 16, 8, 64, 64, True, 0, 0, 1.0, False,
@@ -294,7 +304,18 @@ KERNEL_CASES = [
      False, torch.bfloat16),
     ("dsv2_mla_prefill", 1, 1000, 1000, 128, 128, 192, 128, True, 0, 0, 1.0,
      False, torch.bfloat16),
+    # h2o-danube-1.8b and minicpm3-4b at the serving trace's other prompt
+    # lengths (PROMPT_LENS), as gemma_p{n}: at 97 and 180 tokens the split
+    # plan splits, so the padded partials and flash_merge_kernel<80> run
+    *((f"danube_p{n}", 1, n, n, 32, 8, 80, 80, True, 4096, 0, 1.0, False,
+       torch.bfloat16) for n in (97, 180, 351, 563, 742, 1000)),
+    *((f"minicpm3_p{n}", 1, n, n, 40, 40, 96, 64, True, 0, 0, 1.0, False,
+       torch.bfloat16) for n in (97, 180, 351, 563, 742)),
 ]
+# rows that must split on the main path's 64-key tile (``split_plan``), so
+# the merge kernel is held to the plain version at each served head dim
+SPLIT_CASES = ("gemma_p97", "danube_p97", "danube_p180", "minicpm3_p97",
+               "minicpm3_p180")
 # (name, B, S, H, N, w_hi); the first is the serving path's (rwkv6-1.6b
 # prefill), then a paged chunk round (8 slots x 64 tokens), an odd length,
 # tests/test_kernels.py's WKV cases and its padded S = 100 case, and strong
@@ -317,6 +338,17 @@ PROMPT_LENS = [97, 1000, 351, 742, 180, 563]
 # (4096, 2048): the SWA rings wrap and the plain path takes its KV band
 LONG_PROMPT = 4500
 LONG_MAX_LEN = 4608  # prompt + MAX_NEW + 1, rounded up to 16-token pages
+# the dense engine's flash launches of one serving trace, per model: its
+# attention layers times one prefill of each prompt length, the kernel row
+# at each length; ``_trace_sums`` adds their times
+TRACE_ROWS = {
+    "gemma-2b": (18, ["gemma_prefill"]
+                 + [f"gemma_p{n}" for n in (97, 180, 351, 563, 742)]),
+    "h2o-danube-1.8b": (24, [f"danube_p{n}" for n in PROMPT_LENS]
+                        + ["danube_swa_prefill"]),
+    "minicpm3-4b": (62, ["minicpm3_mla_prefill"]
+                    + [f"minicpm3_p{n}" for n in (97, 180, 351, 563, 742)]),
+}
 # the models served after rwkv6-1.6b, in order, each with its f32 parity
 # phases first (``phase_model``); "arch@L" is a depth cut, the arch at its
 # full width with L layers: qwen2-vl-72b keeps 8 of its 80 layers (9.51 B
@@ -343,24 +375,32 @@ WHISPER_BF16_REL = 3e-2
 # init sets them to zero (as JAX's), which zeros every RG-LRU output
 CONV_SCALE = 0.5
 # cases where the wgmma body replaces the mma.sync body, which is timed
-# beside it in the same run (``_body="mma"``)
-PREV_BODY_CASES = ("gemma_prefill", "deepseek7b_prefill")
+# beside it in the same run (``_body="mma"``): the multiples of 64 since
+# the wgmma body came, the padded head dims 80 and 96 since it took them
+PREV_BODY_CASES = ("gemma_prefill", "deepseek7b_prefill", "window_d80",
+                   "danube_swa_prefill", "minicpm3_mla_prefill",
+                   *(c[0] for c in KERNEL_CASES
+                     if c[0].startswith(("danube_p", "minicpm3_p"))))
 # kernels that must compile without spills: the flash wgmma body at
-# Dv = D = 256, 128 and 64 (at D = Dv = 128 and 64 both key tiles, 64 and
-# 128: the mangled names <D, Dv, block_k> share these prefixes), every
-# instantiation of the WKV chunked body's kernels (both chunks)
+# Dv = D = 256, 128, 80 and 64 and at D 96 / Dv 64 (below 256 both key
+# tiles, 64 and 128: the mangled names <D, Dv, block_k> share these
+# prefixes), every instantiation of the WKV chunked body's kernels (both
+# chunks)
 NO_SPILL = ("flash_fwd_wgmma_kernelILi256ELi256E",
             "flash_fwd_wgmma_kernelILi128ELi128E",
+            "flash_fwd_wgmma_kernelILi80ELi80E",
+            "flash_fwd_wgmma_kernelILi96ELi64E",
             "flash_fwd_wgmma_kernelILi64ELi64E",
             "wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
 # the second tiles: flash's 128-key tiles on the wgmma body, where
 # the body has them (Dv <= 128), and the WKV chunked body's 32-step chunks
 SECOND_BLOCK_K, SECOND_CHUNK = 128, 32
 # the shapes whose tiles' shared memory the build phase holds to the tuner's
-# fit model: every (D, Dv) of the wgmma body, and the mma.sync body's of
-# the zoo; the WKV scan at every N
+# fit model: every (D, Dv) of the wgmma body -- (80, 80) and (96, 64) sized
+# as wgmma since it takes them, in whole 64-column boxes -- and the mma.sync
+# body's at the smoke configs' D 32; the WKV scan at every N
 FIT_SHAPES = [(d, dv) for d in (64, 128, 192, 256) for dv in (64, 128, 256)] \
-    + [(80, 80), (96, 64)]
+    + [(80, 80), (96, 64), (32, 32)]
 FIT_N = (16, 32, 64)
 # the kernels each wrapper launches, as torch.profiler names them
 FLASH_KERNELS = ("flash_fwd", "flash_merge")
@@ -675,11 +715,14 @@ def phase_fit() -> None:
     from repro_torch.kernels import linear_scan as ls
 
     rows, bf16 = [], torch.bfloat16
-    for D, Dv in FIT_SHAPES:
+    widths = range(16, fa.MAX_D + 1, 16)
+    for D, Dv in itertools.product(widths, widths):  # WGMMA_SHAPES == C's
         body = fa.select_body(bf16, D, Dv, D ** -0.5)
         if body != fa.body_of(bf16, D, Dv):
             raise AssertionError(f"[fit] D {D} Dv {Dv}: the host picks "
                                  f"{fa.body_of(bf16, D, Dv)}, C {body}")
+    for D, Dv in FIT_SHAPES:
+        body = fa.select_body(bf16, D, Dv, D ** -0.5)
         for bk in (fa.BLOCK_K, SECOND_BLOCK_K):
             c_bytes = fa.smem_bytes(D, Dv, bk)
             built = bk in fa.key_tiles(body, Dv)
@@ -843,6 +886,9 @@ def phase_kernels() -> list[dict]:
         body = fa.select_body(dt, D, Dv, scale)
         plan = (fa.split_plan(B, Sq, Skv, Hq, causal, window, q_offset)
                 if body == "wgmma" else None)
+        if name in SPLIT_CASES and not (plan and plan.merges):
+            raise AssertionError(f"[kernels] {name}: no split unit on the "
+                                 f"{body} body; the merge goes unchecked")
         prev = {}
         if name in PREV_BODY_CASES:  # the mma.sync body, same inputs, same run
             prev_out = fa.flash_attention(q, k, v, _body="mma", **kw)
@@ -904,6 +950,32 @@ def phase_kernels() -> list[dict]:
         log(f"[kernels] {json.dumps(row)}")
         results.append(row)
     return results
+
+
+def _trace_sums(rows: list[dict], launches: dict[str, int]) -> dict:
+    """Each TRACE_ROWS model's flash device time over one serving trace:
+    layers x the row's time at each prompt length, for the wgmma body, the
+    mma.sync body timed beside it and the bound; fails unless the rows
+    cover the dense engine's launches of that model."""
+    by_name = {r["case"]: r for r in rows}
+    sums = {}
+    for arch, (layers, names) in TRACE_ROWS.items():
+        if launches.get(f"{arch} dense") != layers * len(names):
+            raise AssertionError(f"[kernels] {arch}: {layers} x {len(names)}"
+                                 f" rows, {launches.get(f'{arch} dense')} "
+                                 f"dense launches")
+        got = [by_name[n] for n in names]
+        wg = layers * sum(r["device_ms"] for r in got)
+        bound = layers * sum(r["bound_ms"] for r in got)
+        prev = [r.get("prev_body_device_ms") for r in got]
+        sums[arch] = dict(
+            launches=layers * len(names), device_ms=wg, bound_ms=bound,
+            minus_bound_ms=wg - bound,
+            prev_body_device_ms=(layers * sum(prev) if None not in prev
+                                 else None))
+    log(f"[kernels] one serving trace's dense flash launches, layers x each "
+        f"prompt length's row: {json.dumps(sums)}")
+    return sums
 
 
 def _wkv_inputs(B, S, H, N, seed, w_hi=0.0):
@@ -1131,8 +1203,9 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
     ``kernel`` is the module of the path's kernel wrapper, whose launch
     count is set to 0 just before each engine runs and read just after.
     The dense engine runs one full prefill per prompt, ``per_prefill``
-    launches each; ``paged_launches(stats)`` is the paged engine's expected
-    count."""
+    launches each, and every bf16 flash launch there runs the wgmma body
+    (the bodies the wrapper selected are tallied around the engine);
+    ``paged_launches(stats)`` is the paged engine's expected count."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.launch.serve import (ContinuousBatcher,
@@ -1152,14 +1225,30 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
 
     dense_reqs = reqs()
     batcher = ContinuousBatcher(model, params, n_slots=4, max_len=max_len)
+    bodies, select = {}, fa.select_body
+
+    def tally(*args):  # the flash wrapper asks once per launch
+        body = select(*args)
+        bodies[body] = bodies.get(body, 0) + 1
+        return body
+
     reset()
-    stats = batcher.run(dense_reqs)
+    fa.select_body = tally
+    try:
+        stats = batcher.run(dense_reqs)
+    finally:
+        fa.select_body = select
     torch.cuda.synchronize()
     launches = {"dense": kernel.launches}
     others = fa.launches + ls.launches - kernel.launches
     log(f"[serve] {cfg.name} dense: wall_s {stats['wall_s']:.3f} tok/s "
         f"{stats['tok_per_s']:.2f} host_syncs {stats['host_syncs']} "
-        f"{name} launches {launches['dense']}")
+        f"{name} launches {launches['dense']}, flash bodies of the prefills "
+        f"{json.dumps(bodies)}")
+    if sum(bodies.values()) != fa.launches or (
+            cfg.compute_dtype == "bfloat16" and set(bodies) - {"wgmma"}):
+        raise AssertionError(f"[serve] dense: flash bodies {bodies} for "
+                             f"{fa.launches} launches (bf16: wgmma only)")
     expect = per_prefill * len(prompts)
     if not all(r.done and not r.rejected for r in dense_reqs):
         raise AssertionError("[serve] dense: a request did not finish")
@@ -3439,6 +3528,7 @@ def main() -> None:
             flash_launches[f"{arch} {engine}"] = n
         stamp(f"serving {arch}")
     flash_launches.update(phase_whisper())
+    trace_sums = _trace_sums(flash_rows, flash_launches)
     stamp("serving models")
 
     phase_train_parity()
@@ -3476,7 +3566,7 @@ def main() -> None:
                       {f: r for f, r in ptxas.items() if "flash" in f},
                       prev_body_device_ms=flash_rows[0].get(
                           "prev_body_device_ms"),
-                      trace_device_ms=trace_ms),
+                      trace_device_ms=trace_ms, trace_sums=trace_sums),
         _kernel_entry("linear_scan", WKV_SOURCE, WKV_REPLACES, wkv_launches,
                       wkv_rows, "none: no single PyTorch call computes the "
                       "WKV scan", {f: r for f, r in ptxas.items()

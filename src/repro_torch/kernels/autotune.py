@@ -109,12 +109,14 @@ def attention_smem_bytes(block_q: int, block_k: int, D: int, Dv: int,
                          dtype) -> int:
     """Dynamic shared memory of one CTA of the flash body that (dtype, D, Dv)
     selects, as the C entry sizes it: the wgmma body's Q tile plus a
-    two-stage K/V ring in bf16 with 1 KB of alignment slack and the
+    two-stage K/V ring in bf16, each as wide as whole 64-column boxes (D 80
+    and 96 take 128 columns), with 1 KB of alignment slack and the
     barriers; the mma.sync body's padded Q and two K/V buffers; the FMA
     body's padded f32 tiles, probabilities and row statistics."""
     body = _fa.body_of(dtype, D, Dv)
     if body == "wgmma":
-        return 1024 + 2 * (block_q * D + 2 * block_k * (D + Dv)) + 64
+        Dp, Dvp = _fa.wgmma_widths(D, Dv)
+        return 1024 + 2 * (block_q * Dp + 2 * block_k * (Dp + Dvp)) + 64
     if body == "mma":
         return 2 * ((block_q + 2 * block_k) * (D + 8) + 2 * block_k * (Dv + 8))
     return 4 * ((block_q + block_k) * (D | 1) + block_k * (Dv | 1)

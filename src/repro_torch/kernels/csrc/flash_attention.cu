@@ -23,10 +23,12 @@
 //
 // Three bodies, chosen by shape and dtype (repro_flash_attention_select):
 //
-//  * wgmma (bf16, D in {64, 128, 192, 256}, Dv in {64, 128, 256}: gemma-2b,
-//    deepseek-7b, the zoo's 192/128; scale > 0).  One CTA of 160 threads per
-//    work item: warpgroup 0 (128 threads, 64 query rows) computes, warp 4
-//    loads.  What it does about each limit of the mma.sync body below:
+//  * wgmma (bf16, scale > 0; D in {64, 128, 192, 256} with Dv in {64, 128,
+//    256}: gemma-2b, deepseek-7b, the zoo's 192/128; and (D, Dv) = (80, 80),
+//    h2o-danube-1.8b, and (96, 64), minicpm3-4b's MLA).  One CTA of 160
+//    threads per work item: warpgroup 0 (128 threads, 64 query rows)
+//    computes, warp 4 loads.  What it does about each limit of the mma.sync
+//    body below:
 //    1. Tensor cores: S = Q K^T is wgmma m64n64k16 with Q and K read from
 //       shared memory through descriptors, and O += P V is wgmma m64nDvk16
 //       with P from registers (the S accumulator converted in place to bf16
@@ -75,13 +77,29 @@
 //       launch bound follows it).  Which tile is faster at a shape is the
 //       tuner's question (kernels/autotune.py); callers that name no tile
 //       get 64.
+//    6. Head dims that are not a multiple of 64 (80, 96): the kernel is
+//       templated on the real D and Dv and keeps its tiles in whole 64-column
+//       boxes, DP = pad_box(D) and DVP = pad_box(Dv), both 128 at D 80 and
+//       96.  The tensor maps span the real width, so TMA zero-fills the
+//       columns past it (no copy of q, k or v on the host), and the
+//       barriers expect whole boxes, as they do for rows past S.  S = Q K^T
+//       runs D / 16 k-steps (5 at D 80, 6 at D 96) and never multiplies a
+//       zero column.  O += P V at Dv 80 runs as m64n128k16, 1.6x the useful
+//       MMA work: an MN-major V in the 128-byte swizzle comes in 64-column
+//       atoms, so a 64 + 16 split would need another swizzle for the last 16
+//       columns.  O then holds 64 f32 a thread, as at Dv 128, and the
+//       epilogue and the split path's partials keep only the Dv real
+//       columns.  Shared memory is sized by the padded widths: (80, 80) as
+//       (128, 128), (96, 64) as (128, 64).  ptxas -v: 150 and 219
+//       registers at (80, 80) with 64- and 128-key tiles, 118 and 157 at
+//       (96, 64), no spill stores; flash_merge_kernel<80> 40, no spill.
 //    flash_merge_kernel: 32 registers, an 8-byte stack frame, 4 bytes of
 //    spill stores.
-//  * mma.sync (bf16, the other head dims: 16, 32, 80, 96/64; and on request
-//    at any bf16 shape, to time it against wgmma): mma.sync m16n8k16 with
-//    f32 accumulation, four warps of 16 query rows, ldmatrix fragments from
-//    padded rows, cp.async double-buffered K/V tiles, one CTA per (q tile,
-//    head, batch).  Every warp reads the whole K and V tile, so each K/V
+//  * mma.sync (bf16, the other head dims, e.g. the smoke configs' 16 and 32;
+//    and on request at any bf16 shape, to time it against wgmma): mma.sync
+//    m16n8k16 with f32 accumulation, four warps of 16 query rows, ldmatrix
+//    fragments from padded rows, cp.async double-buffered K/V tiles, one CTA
+//    per (q tile, head, batch).  Every warp reads the whole K and V tile, so each K/V
 //    fragment feeds only 16 rows; shared memory at D = Dv = 256 is 165 KB.
 //    ptxas: 243 registers at Dv = 256, 96 to 168 below, no spills.
 //  * f32: FMAs on the CUDA cores (a 4 x 4 score micro-tile and a 4 x Dv/16
@@ -464,6 +482,9 @@ constexpr int kWgThreads = 160;  // warpgroup 0 computes, warp 4 loads
 constexpr int kStages = 2;       // K/V ring depth
 constexpr int kBox = 64;         // elements of one 128-byte swizzled TMA box row
 constexpr uint32_t kRowBytes = 128;  // a box row; a box of r rows is r * 128 bytes
+// A head dim rounded up to whole 64-column boxes: the wgmma body's width in
+// shared memory and, for V, of its PV product (D 80 -> 128, D 96 -> 128)
+__host__ __device__ constexpr int pad_box(int w) { return (w + kBox - 1) / kBox * kBox; }
 // Shared memory an SM offers its CTAs (228 KB), and what the runtime keeps
 // back of it for each CTA (1 KB)
 constexpr size_t kSmemPerSm = 228 * 1024, kSmemPerCta = 1024;
@@ -489,15 +510,18 @@ struct WgArgs {
 };
 
 // Q, then kStages K tiles, then kStages V tiles of bk keys, each 1024-byte
-// aligned for the 128-byte swizzle; then 7 mbarriers; plus slack to align
-// the base
+// aligned for the 128-byte swizzle and as wide as whole boxes (pad_box);
+// then 7 mbarriers; plus slack to align the base
 __host__ __device__ constexpr size_t wg_smem_bytes(int d, int dv, int bk) {
-  return 1024 + sizeof(bf16) * (size_t)(kBlockQ * d + kStages * bk * (d + dv)) + 64;
+  return 1024 +
+         sizeof(bf16) * (size_t)(kBlockQ * pad_box(d) + kStages * bk * (pad_box(d) + pad_box(dv))) +
+         64;
 }
 
 // CTAs an SM: the register budget's (Dv = 256: O alone is 128 f32 a thread,
-// one CTA; two below), or fewer where shared memory holds fewer.  The launch
-// bound is this count, so ptxas budgets registers for the CTAs that fit.
+// one CTA; two below, where Dv 80's O is 128 wide), or fewer where shared
+// memory holds fewer.  The launch bound is this count, so ptxas budgets
+// registers for the CTAs that fit.
 __host__ __device__ constexpr int wg_ctas_per_sm(int d, int dv, int bk) {
   const int regs = dv == 256 ? 1 : 2;
   const int fit = (int)(kSmemPerSm / (wg_smem_bytes(d, dv, bk) + kSmemPerCta));
@@ -607,14 +631,22 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t dq, uint64
 
 // Grid: one CTA per work item, heaviest first.  Tensor maps are 4-D over
 // (d, head, s, batch) with a (64, 1, 64, 1) box for Q and (64, 1, BK, 1) for
-// K and V, so rows past a batch's S edge arrive as zeros.
+// K and V, so rows past a batch's S edge arrive as zeros, and so do the
+// columns past D (Dv) of a head dim that is not a multiple of 64: the tiles
+// are DP (DVP) columns wide, and every box counts whole in the barriers'
+// transaction bytes.  S = Q K^T runs D / 16 k-steps, never a zero column;
+// O += P V runs at DVP (Dv 80 as n128: an MN-major operand in the 128-byte
+// swizzle comes in 64-column atoms), and only the Dv real columns are kept.
 template <int D, int DV, int BK>
 __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(D, DV, BK))
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, const WgArgs w) {
-  constexpr uint32_t kQBytes = kBlockQ * D * 2, kKBytes = BK * D * 2;
-  constexpr uint32_t kVBytes = BK * DV * 2;
+  constexpr int DP = pad_box(D), DVP = pad_box(DV);
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DP <= 256, "head dims: multiples of 16");
+  static_assert(DVP == 64 || DVP == 128 || DVP == 256, "PV widths: n64, n128, n256");
+  constexpr uint32_t kQBytes = kBlockQ * DP * 2, kKBytes = BK * DP * 2;
+  constexpr uint32_t kVBytes = BK * DVP * 2;
   // one 64-column box: 64 rows of Q, BK rows of K or V
   constexpr uint32_t kQBox = kBlockQ * kRowBytes, kKBox = BK * kRowBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -647,7 +679,7 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(D, DV, BK))
       const int hk = it.h / (a.Hq / a.Hkv);
       mbar_expect_tx(q_full, kQBytes);
 #pragma unroll
-      for (int c = 0; c < D / kBox; ++c)
+      for (int c = 0; c < DP / kBox; ++c)
         tma_load(sQ + c * kQBox, &tm_q, q_full, c * kBox, it.h, it.qt * kBlockQ, it.b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
@@ -655,11 +687,11 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(D, DV, BK))
         const int k0 = (it.kt0 + i) * BK;
         mbar_expect_tx(k_full + 8 * s, kKBytes);
 #pragma unroll
-        for (int c = 0; c < D / kBox; ++c)
+        for (int c = 0; c < DP / kBox; ++c)
           tma_load(sK + s * kKBytes + c * kKBox, &tm_k, k_full + 8 * s, c * kBox, hk, k0, it.b);
         mbar_expect_tx(v_full + 8 * s, kVBytes);
 #pragma unroll
-        for (int c = 0; c < DV / kBox; ++c)
+        for (int c = 0; c < DVP / kBox; ++c)
           tma_load(sV + s * kVBytes + c * kKBox, &tm_v, v_full + 8 * s, c * kBox, hk, k0, it.b);
       }
     }
@@ -668,9 +700,9 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(D, DV, BK))
     const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
     const int q0 = it.qt * kBlockQ, pq0 = a.q_offset + q0;
     const float sl2 = a.scale * kLog2e;  // scores to log2 units: one FFMA with the max
-    float o[DV / 2];
+    float o[DVP / 2];  // columns past Dv stay 0: P times V's zero-filled columns
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DVP / 2; ++i) o[i] = 0.f;
     float m_r[2] = {kNegInf, kNegInf};  // running max, raw score units
     float l_r[2] = {0.f, 0.f};          // this thread's share of the running sum
 
@@ -734,7 +766,7 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(D, DV, BK))
           l_r[e / 2] += sc[4 * j + e];  // reduced over the row's 4 lanes at the end
         }
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {  // the zero columns need no rescale
         o[4 * j] *= alpha[0];
         o[4 * j + 1] *= alpha[0];
         o[4 * j + 2] *= alpha[1];
@@ -755,7 +787,7 @@ __global__ void __launch_bounds__(kWgThreads, wg_ctas_per_sm(D, DV, BK))
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < BK / 16; ++ks)
-        wgmma_pv<DV>(o, pa[ks], sw128_desc(sV + s * kVBytes + ks * 2048, kKBox, 1024));
+        wgmma_pv<DVP>(o, pa[ks], sw128_desc(sV + s * kVBytes + ks * 2048, kKBox, 1024));
       wg_commit();
       wg_wait_all();
       pin(o);
@@ -1119,8 +1151,20 @@ int launch_wgmma(const WgArgs& w, int n_items, int n_merges, cudaStream_t stream
 // the 128-key ring would need 296,000 bytes at D 256, past a block's limit)
 #define REPRO_FA_WG_DV(X, D_) \
   X(D_, 64, 64) X(D_, 128, 64) X(D_, 256, 64) X(D_, 64, 128) X(D_, 128, 128)
-#define REPRO_FA_WG_CASES(X) \
-  REPRO_FA_WG_DV(X, 64) REPRO_FA_WG_DV(X, 128) REPRO_FA_WG_DV(X, 192) REPRO_FA_WG_DV(X, 256)
+// and the two pairs served at head dims that are not multiples of 64:
+// h2o-danube-1.8b's (80, 80) and minicpm3-4b's MLA (96 = nope 64 + rope 32, 64)
+#define REPRO_FA_WG_CASES(X)                                                                     \
+  REPRO_FA_WG_DV(X, 64) REPRO_FA_WG_DV(X, 128) REPRO_FA_WG_DV(X, 192) REPRO_FA_WG_DV(X, 256)     \
+  X(80, 80, 64) X(80, 80, 128) X(96, 64, 64) X(96, 64, 128)
+
+// Whether the wgmma body is built for (D, Dv): every pair has the 64-key tile
+bool wg_built(int D, int Dv) {
+#define REPRO_FA_WG(D_, DV_, BK_) \
+  if (D == D_ && Dv == DV_ && BK_ == kBlockK) return true;
+  REPRO_FA_WG_CASES(REPRO_FA_WG)
+#undef REPRO_FA_WG
+  return false;
+}
 
 }  // namespace
 
@@ -1128,12 +1172,12 @@ extern "C" {
 
 // The body that runs: 0 = f32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma; -1 if
 // the request cannot run.  request: 0 = by shape and dtype, 1 = mma.sync,
-// 2 = wgmma.  By shape and dtype, bf16 with D a multiple of 64 up to 256,
-// Dv in {64, 128, 256} and scale > 0 (the running max is taken on raw
-// scores) takes wgmma; other bf16 head dims take mma.sync.
+// 2 = wgmma.  By shape and dtype, bf16 at a (D, Dv) the wgmma body is built
+// for (D in {64, 128, 192, 256} with Dv in {64, 128, 256}; (80, 80); (96,
+// 64)) and scale > 0 (the running max is taken on raw scores) takes wgmma;
+// other bf16 head dims take mma.sync.
 int repro_flash_attention_select(int dtype, int D, int Dv, float scale, int request) {
-  const bool wgmma = dtype == 1 && D % 64 == 0 && D > 0 && D <= 256 &&
-                     (Dv == 64 || Dv == 128 || Dv == 256) && scale > 0.f;
+  const bool wgmma = dtype == 1 && scale > 0.f && wg_built(D, Dv);
   if (dtype == 0) return request == 0 ? 0 : -1;
   if (dtype != 1 || D % 16 != 0) return -1;
   if (request == 1) return 1;

@@ -8,12 +8,16 @@ explicit-mask oracle of ``kernels/ref.py``).  The kernel's source carries the
 note on what bounds it on the card and what its design does about it.
 
 The kernel has three bodies, chosen by shape and dtype in C
-(``select_body``): ``wgmma`` for bf16 at D in {64, 128, 192, 256} and Dv in
-{64, 128, 256}, ``mma`` for the other bf16 head dims, ``fma`` for f32.  The
-``wgmma`` body runs the work items of ``split_plan``; its plain twin,
-``flash_attention_split_plain``, computes the same partials and merges them
-with the merge kernel's formula, so the CPU tests hold the split algorithm
-against the reference.
+(``select_body``): ``wgmma`` for bf16 at the (D, Dv) pairs of
+``WGMMA_SHAPES`` (D in {64, 128, 192, 256} with Dv in {64, 128, 256}, and
+the served widths (80, 80) and (96, 64)), ``mma`` for the other bf16 head
+dims, ``fma`` for f32.  The ``wgmma`` body runs the work items of
+``split_plan``; its plain twin, ``flash_attention_split_plain``, computes the
+same partials and merges them with the merge kernel's formula, so the CPU
+tests hold the split algorithm against the reference.  At D 80 and 96 the
+body keeps its tiles in whole 64-column boxes (``wgmma_widths``): TMA
+zero-fills the columns past the head dim, Q K^T skips them, and P V runs at
+the padded Dv (128 at Dv 80), of which only the real columns are stored.
 
 Tiles: every body runs 64-row q tiles (one warpgroup's ``wgmma`` M).  The
 key tile is 64 by default, and the ``wgmma`` body also takes 128 at Dv <=
@@ -41,6 +45,12 @@ MAX_D = 256
 BLOCK_Q = BLOCK_K = 64
 #: key tiles of the wgmma body at Dv <= 128 (``REPRO_FA_WG_CASES`` in C)
 WGMMA_BLOCK_K = (64, 128)
+#: the (D, Dv) pairs the wgmma body is built for (``REPRO_FA_WG_CASES``)
+WGMMA_SHAPES = frozenset(
+    [(d, dv) for d in (64, 128, 192, 256) for dv in (64, 128, 256)]
+    + [(80, 80), (96, 64)])
+#: columns of one TMA box (128 bytes of bf16): the wgmma body's width unit
+WGMMA_BOX = 64
 #: SMs of an H100 SXM: the split plan aims at one wave of this many CTAs
 N_SM = 132
 LOG2E = 1.4426950408889634
@@ -89,8 +99,14 @@ def body_of(dtype: torch.dtype, D: int, Dv: int) -> str:
     tuner's fit model reads it on the host."""
     if dtype == torch.float32:
         return "fma"
-    wgmma = D % 64 == 0 and 0 < D <= MAX_D and Dv in (64, 128, 256)
-    return "wgmma" if dtype == torch.bfloat16 and wgmma else "mma"
+    return "wgmma" if (D, Dv) in WGMMA_SHAPES else "mma"
+
+
+def wgmma_widths(D: int, Dv: int) -> tuple[int, int]:
+    """The wgmma body's (D, Dv) in shared memory, rounded up to whole
+    64-column boxes (``pad_box`` in C): Q and K tiles are the first wide, V
+    tiles and the P V product the second."""
+    return tuple(-(-w // WGMMA_BOX) * WGMMA_BOX for w in (D, Dv))
 
 
 def key_tiles(body: str, Dv: int) -> tuple[int, ...]:

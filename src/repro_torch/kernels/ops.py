@@ -2,9 +2,10 @@
 
 ``flash_attention`` is the hand-written Hopper kernel's wrapper
 (``kernels/flash_attention.py``): 64-row q tiles against 64- or 128-key
-tiles, on the wgmma body for bf16 head dims that are multiples of 64 (with
-the split-KV plan for short prompts), the mma.sync body for other bf16
-head dims and the FMA body for f32.  ``linear_scan`` is the RWKV-6 WKV scan
+tiles, on the wgmma body for the bf16 head dims it is built for (multiples
+of 64, and the served 80 / 80 and 96 / 64; with the split-KV plan for
+short prompts), the mma.sync body for other bf16 head dims and the FMA body
+for f32.  ``linear_scan`` is the RWKV-6 WKV scan
 kernel's wrapper (``kernels/linear_scan.py``): on a CUDA tensor it runs the
 chunked body (32- or 64-step chunks as 3xTF32 tensor-core products, three
 launches) at every shape, and the per-step body only when a caller asks for

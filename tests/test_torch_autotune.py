@@ -54,7 +54,7 @@ def isolated_tuner(tmp_path, monkeypatch):
 # ------------------------------------------------------------- candidates
 @pytest.mark.parametrize("D,Dv,n", [(64, 64, 2), (64, 128, 2), (128, 128, 2),
                                     (192, 128, 2), (256, 128, 2),
-                                    (256, 256, 1), (80, 80, 1), (96, 64, 1)])
+                                    (256, 256, 1), (80, 80, 2), (96, 64, 2)])
 def test_attention_candidates_fit_and_include_default(D, Dv, n):
     cands = at.attention_candidates(512, 512, D, Dv, BF16)
     assert len(cands) == n
@@ -79,6 +79,38 @@ def test_fit_model_matches_the_sizing_table():
     assert at.attention_smem_bytes(64, 128, 256, 256, BF16) == 296000
     assert at.attention_ctas(64, 128, 256, 256, BF16) == 0
     assert [at.scan_smem_bytes(c, 64) for c in (32, 64)] == [58896, 107024]
+
+
+@pytest.mark.parametrize("D,Dv,block_k,padded,want", [
+    (80, 80, 64, (128, 128), (83008, 2)),
+    (80, 80, 128, (128, 128), (148544, 1)),
+    (96, 64, 64, (128, 64), (66624, 2)),
+    (96, 64, 128, (128, 64), (115776, 1))])
+def test_fit_model_sizes_padded_head_dims_in_whole_boxes(D, Dv, block_k,
+                                                        padded, want):
+    """The wgmma body at D 80 and 96 keeps its tiles 128 columns wide (Dv
+    80 too, Dv 64 stays 64): (80, 80) is sized as (128, 128), (96, 64) as
+    (128, 64) -- the C entry's ``wg_smem_bytes`` over ``pad_box``."""
+    assert (at.attention_smem_bytes(64, block_k, D, Dv, BF16),
+            at.attention_ctas(64, block_k, D, Dv, BF16)) == want
+    Dp, Dvp = fa.wgmma_widths(D, Dv)
+    assert (Dp, Dvp) == padded
+    assert at.attention_smem_bytes(64, block_k, D, Dv, BF16) == \
+        at.attention_smem_bytes(64, block_k, Dp, Dvp, BF16)
+
+
+@pytest.mark.parametrize("D,Dv,body", [
+    (80, 80, "wgmma"), (96, 64, "wgmma"), (64, 64, "wgmma"),
+    (256, 256, "wgmma"), (16, 16, "mma"), (32, 32, "mma"), (80, 64, "mma"),
+    (96, 96, "mma"), (128, 80, "mma")])
+def test_body_of_mirrors_the_c_selection(D, Dv, body):
+    """bf16 takes wgmma exactly at the (D, Dv) pairs it is built for,
+    with both key tiles at Dv <= 128; other widths (the smoke configs' 16
+    and 32 among them) stay on mma.sync at 64 keys; f32 is the FMA body."""
+    assert fa.body_of(BF16, D, Dv) == body
+    assert fa.key_tiles(body, Dv) == ((64, 128) if body == "wgmma" and Dv <= 128
+                                      else (64,))
+    assert fa.body_of(F32, D, Dv) == "fma"
 
 
 def test_f32_runs_one_tile():

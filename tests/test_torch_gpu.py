@@ -1,8 +1,10 @@
 """The port's CUDA kernels (flash attention, the RWKV-6 WKV scan, each of
 its bodies) against their plain versions, on the card, the flash kernel
 also at the sliding-window models' full prefill shapes and at the MLA and
-MoE models' (minicpm3-4b's D 96 / Dv 64, granite-moe-1b-a400m's D 64); the
-sliding-window, MLA and MoE smoke models' prefill and decode on the card
+MoE models' (minicpm3-4b's D 96 / Dv 64, granite-moe-1b-a400m's D 64),
+the wgmma body at the padded head dims 80 and 96 beside the mma.sync body
+on the same inputs; the sliding-window, MLA and MoE smoke models' prefill
+and decode on the card
 against the CPU; the encoder-decoder path's non-causal shapes (whisper's
 encoder and cross-attention, 1500 keys: a ragged last key tile) and
 qwen2-vl's GQA 64/8 at D 128; whisper's smoke prefill then decode on the
@@ -46,6 +48,13 @@ GPU_CASES = [
     (1, 200, 456, 4, 2, 64, 64, True, 96, 256, 1.0, torch.bfloat16),
     (1, 97, 97, 8, 1, 256, 256, True, 0, 0, 1.0, torch.bfloat16),
     (2, 130, 130, 4, 1, 128, 128, True, 0, 0, 0.5, torch.bfloat16),
+    # the wgmma body at head dims padded to whole 64-column boxes: D 96 /
+    # Dv 64 with an Sq that is not a multiple of 64; D 80 with the residual
+    # epilogue at out_scale 0.5; both split (merge kernel at Dv 64 and 80)
+    (2, 150, 150, 8, 8, 96, 64, True, 0, 0, 1.0, torch.bfloat16),
+    (2, 130, 130, 4, 2, 80, 80, True, 0, 0, 0.5, torch.bfloat16),
+    # the mma.sync body: the smoke configs' D 32
+    (1, 100, 100, 2, 2, 32, 32, True, 0, 0, 1.0, torch.bfloat16),
 ]
 
 
@@ -78,11 +87,12 @@ def test_flash_kernel_matches_plain_on_gpu(case):
 
 
 # the sliding-window models' full prefill of a 4500-token prompt, longer
-# than both windows: h2o-danube-1.8b (GQA 32/8, D 80: the mma.sync body,
-# window 4096) and recurrentgemma-9b (MQA 16/1, D 256: the wgmma body and
-# its window-limited split plan, window 2048)
+# than both windows: h2o-danube-1.8b (GQA 32/8, D 80: the wgmma body at a
+# padded head dim, window 4096) and recurrentgemma-9b (MQA 16/1, D 256: the
+# wgmma body and its window-limited split plan, window 2048)
 SWA_PREFILL_CASES = [
-    ((1, 4500, 4500, 32, 8, 80, 80, True, 4096, 0, 1.0, torch.bfloat16), "mma"),
+    ((1, 4500, 4500, 32, 8, 80, 80, True, 4096, 0, 1.0, torch.bfloat16),
+     "wgmma"),
     ((1, 4500, 4500, 16, 1, 256, 256, True, 2048, 0, 1.0, torch.bfloat16),
      "wgmma"),
 ]
@@ -108,10 +118,11 @@ def test_flash_windowed_prefill_matches_plain_on_gpu(case, body):
 
 
 # the MLA and MoE models' full prefill of a 1000-token prompt: minicpm3-4b's
-# MLA heads (MHA 40/40, D = nope + rope = 96, Dv 64: the mma.sync body) and
-# granite-moe-1b-a400m's (GQA 16/8, D = Dv = 64: the wgmma body)
+# MLA heads (MHA 40/40, D = nope + rope = 96, Dv 64) and
+# granite-moe-1b-a400m's (GQA 16/8, D = Dv = 64), both on the wgmma body
 MLA_MOE_PREFILL_CASES = [
-    ((1, 1000, 1000, 40, 40, 96, 64, True, 0, 0, 1.0, torch.bfloat16), "mma"),
+    ((1, 1000, 1000, 40, 40, 96, 64, True, 0, 0, 1.0, torch.bfloat16),
+     "wgmma"),
     ((1, 1000, 1000, 16, 8, 64, 64, True, 0, 0, 1.0, torch.bfloat16), "wgmma"),
 ]
 
@@ -133,6 +144,54 @@ def test_flash_mla_moe_prefill_matches_plain_on_gpu(case, body):
     assert fa.launches == before + 1
     ref = fa.flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+# the two served widths the wgmma body took over from the mma.sync body:
+# danube's windowed prefill (D 80) and minicpm3's MLA prefill (D 96 / Dv 64)
+PADDED_PREFILL_CASES = [SWA_PREFILL_CASES[0][0], MLA_MOE_PREFILL_CASES[0][0]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PADDED_PREFILL_CASES,
+                         ids=["danube", "minicpm3_mla"])
+def test_flash_padded_wgmma_and_mma_bodies_match_plain(case):
+    """At the padded widths the wgmma body runs by default and the
+    mma.sync body on request (``_body="mma"``), on the same inputs, one
+    launch each: both within 2e-2 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    q, k, v, kw = _flash_inputs(case)
+    kw = dict(kw, residual=None)
+    D, Dv = case[5], case[6]
+    assert fa.select_body(q.dtype, D, Dv, D ** -0.5) == "wgmma"
+    assert fa.select_body(q.dtype, D, Dv, D ** -0.5, "mma") == "mma"
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    for body in (None, "mma"):
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, _body=body, **kw)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [4500, 97], ids=["prefill", "split"])
+def test_flash_padded_wgmma_gives_identical_bits_twice(Sq):
+    """At danube's heads, head dim and window: the full 4500-token prefill
+    and a 97-token prompt, whose plan splits (the merge kernel at Dv 80),
+    give the same bits on two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    case = (1, Sq, Sq, 32, 8, 80, 80, True, 4096, 0, 1.0, torch.bfloat16)
+    q, k, v, kw = _flash_inputs(case)
+    kw = dict(kw, residual=None)
+    assert fa.select_body(q.dtype, 80, 80, 80 ** -0.5) == "wgmma"
+    assert bool(fa.split_plan(1, Sq, Sq, 32, True, 4096, 0).merges) == (Sq == 97)
+    first = fa.flash_attention(q, k, v, **kw)
+    second = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # whisper-medium's full prefill, non-causal over 1500 encoder frames (not a
@@ -274,9 +333,14 @@ def test_flash_bodies_run_where_they_should():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     bodies = {fa.select_body(c[-1], c[5], c[6], c[5] ** -0.5) for c in GPU_CASES}
     assert bodies == {"fma", "mma", "wgmma"}
+    for c in GPU_CASES:  # the C entry and the host's mirror agree
+        assert fa.select_body(c[-1], c[5], c[6], c[5] ** -0.5) == \
+            fa.body_of(c[-1], c[5], c[6])
     assert fa.split_plan(1, 97, 97, 8, True, 0, 0).merges
-    with pytest.raises(ValueError):  # no wgmma body at D = 80
-        fa.select_body(torch.bfloat16, 80, 80, 0.1, "wgmma")
+    with pytest.raises(ValueError):  # no wgmma body at D = 32
+        fa.select_body(torch.bfloat16, 32, 32, 0.1, "wgmma")
+    with pytest.raises(ValueError):  # nor at D 80 with Dv 64
+        fa.select_body(torch.bfloat16, 80, 64, 0.1, "wgmma")
 
 
 @pytest.mark.gpu
@@ -419,9 +483,8 @@ def test_wkv_chunked_new_shape_adds_no_stream_sync():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [c for c in GPU_CASES
-                                  if c[-1] == torch.bfloat16 and c[6] <= 128
-                                  and c[5] % 64 == 0])
+@pytest.mark.parametrize("case", [c for c in GPU_CASES if c[6] <= 128 and
+                                  fa.body_of(c[-1], c[5], c[6]) == "wgmma"])
 def test_flash_128_key_tiles_match_plain_on_gpu(case):
     """The wgmma body's 128-key tiles (``block_k=128``) on every GPU case
     that body takes at Dv <= 128, against the plain version (2e-2 bf16),
@@ -449,7 +512,7 @@ def test_flash_refuses_a_tile_its_body_lacks():
     for tile in (dict(block_k=128), dict(block_k=32), dict(block_q=128)):
         with pytest.raises(ValueError):
             fa.flash_attention(q, k, v, **tile, **kw)
-    q, k, v, kw = _flash_inputs(GPU_CASES[1])  # D 80: the mma.sync body
+    q, k, v, kw = _flash_inputs(GPU_CASES[-1])  # D 32: the mma.sync body
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, block_k=128, **kw)
     assert fa.launches == before
