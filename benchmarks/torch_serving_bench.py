@@ -95,6 +95,7 @@ def run_scenario(engine, requests: list[Request]) -> dict:
     t0 = time.perf_counter()
     stats = engine.run(requests)
     stats["bench_wall_s"] = time.perf_counter() - t0
+    stats.pop("spans", None)  # the paged engine's span record: not a field
     return stats
 
 
@@ -252,7 +253,6 @@ def main() -> int:
           f"({s['p99_over_steady_p50']:.2f}x)")
     for name, sc in scenarios.items():
         print(f"  {name:>24}: {sc['tok_per_s']:8.1f} tok/s  "
-              f"p99_lat {sc.get('p99_latency_ticks', -1.0):6.0f} ticks  "
               f"stall {sc.get('prefill_stall_fraction', 0.0):.3f}  "
               f"syncs {sc['host_syncs']}/{sc['ticks']} ticks  "
               f"wall {sc['wall_s']:.2f} s")

@@ -1210,7 +1210,6 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.launch.serve import (ContinuousBatcher,
                                           PagedServingEngine, Request)
-    from repro_torch.utils import tree_leaves
 
     cfg = model.cfg
     prompts = prompts or _prompts(cfg.vocab_size)
@@ -1276,8 +1275,7 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
         raise AssertionError("[serve] paged: a request did not finish")
     if eng.kv.stats().pages_in_use or any(eng.slot_req):
         raise AssertionError("[serve] paged: pages or slots not returned")
-    view = sum(math.prod(sp.shape) * sp.dtype.itemsize for sp in tree_leaves(
-        model.cache_specs(eng.prefill_group, eng.kv.view_len)))
+    view = eng.kv.view_bytes(eng.prefill_group)
     log(f"[serve] {cfg.name} paged: each prefill round gathers and scatters "
         f"a {eng.prefill_group}-slot view, {2 * view / 1e6:.1f} MB (from the "
         f"cache specs)")

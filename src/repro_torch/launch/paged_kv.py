@@ -35,7 +35,7 @@ import math
 import torch
 
 from repro_torch.models import LanguageModel
-from repro_torch.utils import Spec, take_fill, to_device, tree_map
+from repro_torch.utils import Spec, take_fill, to_device, tree_leaves, tree_map
 
 
 def _pages_dim(spec: Spec) -> int | None:
@@ -53,10 +53,6 @@ class PageStats:
     pages_in_use: int
     pages_free: int
     tokens_reserved: int
-
-    @property
-    def utilization(self) -> float:
-        return self.pages_in_use / max(self.n_pages, 1)
 
 
 class PagedKVCache:
@@ -127,6 +123,21 @@ class PagedKVCache:
             tokens_reserved=used * self.page_size)
 
     # ------------------------------------------------- device gather/scatter
+    def view_bytes(self, G: int) -> int:
+        """Bytes of a G-slot view (``_gather_impl``'s tree), from the specs:
+        a pool leaf's (pages, page_size) become (G, view_len), a dense
+        leaf's slots become G."""
+        def leaf(spec: Spec) -> int:
+            shape = list(spec.shape)
+            pdim = _pages_dim(spec)
+            if pdim is None:
+                shape[_batch_dim(spec)] = G
+            else:
+                shape[pdim:pdim + 2] = [G, self.view_len]
+            return math.prod(shape) * spec.dtype.itemsize
+
+        return sum(leaf(spec) for spec in tree_leaves(self.specs))
+
     def gather_slot(self, slot: int) -> dict:
         """Dense (B=1, view_len, ...) cache view of one slot -- the exact tree
         ``init_cache(1, view_len, enc_len)`` would produce, for

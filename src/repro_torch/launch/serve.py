@@ -23,6 +23,12 @@ interface:
     too, once per rwkv layer per prefill round.
 
 Both report ``host_syncs`` and device<->host byte counters in their stats.
+The paged engine also returns its span record (``stats["spans"]``): the
+host's time in each of its phases on ``time.time_ns`` -- the clock the
+profiler stamps device events on -- and, on a card, the device time of a
+prefill round's KV view and model and of each decode block, between CUDA
+events read at the drains.  It adds no synchronisation and no profiler
+annotation.
 
 Neither engine passes encoder frames, as in JAX (whose ``_Prefilling``
 carries ``frames=None`` and whose batcher prefills tokens only): an
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import importlib
 import time
@@ -62,6 +69,74 @@ class Request:
 
 
 # ---------------------------------------------------------------------------
+# Span record
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(slots=True)
+class Span:
+    """One phase of a run on the host's clock (``time.time_ns``); the run's
+    spans nest by ``parent`` (an ``id``, or None at the top).  ``device_ms``
+    is the time the device took between two CUDA events recorded on the
+    working stream at the phase's edges, where the engine times it."""
+    name: str
+    id: int
+    parent: int | None
+    start_ns: int
+    end_ns: int = 0
+    device_ms: float | None = None
+
+
+class SpanRecord:
+    """The spans of one ``run``, kept in memory.  With ``device`` (a card),
+    ``mark`` records a CUDA event on the device's current stream and
+    ``interval`` pairs two with a span; ``resolve``, called after a
+    synchronisation that follows them, reads their elapsed times, so the
+    device is never waited for on the record's account.  Resolved events
+    are recorded again."""
+
+    def __init__(self, device: torch.device | None = None):
+        self.spans: list[Span] = []
+        self._open: list[int] = []
+        self._device = device
+        self._timed: list[tuple[Span, torch.cuda.Event, torch.cuda.Event]] = []
+        self._recorded: list[torch.cuda.Event] = []
+        self._free: list[torch.cuda.Event] = []
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        s = Span(name, len(self.spans), self._open[-1] if self._open else None,
+                 time.time_ns())
+        self.spans.append(s)
+        self._open.append(s.id)
+        try:
+            yield s
+        finally:
+            self._open.pop()
+            s.end_ns = time.time_ns()
+
+    def mark(self) -> torch.cuda.Event | None:
+        if self._device is None:
+            return None
+        ev = (self._free.pop() if self._free
+              else torch.cuda.Event(enable_timing=True))
+        ev.record(torch.cuda.current_stream(self._device))
+        self._recorded.append(ev)
+        return ev
+
+    def interval(self, span: Span, start, end) -> None:
+        if start is not None:
+            self._timed.append((span, start, end))
+
+    def resolve(self) -> None:
+        for span, start, end in self._timed:
+            span.device_ms = start.elapsed_time(end)
+        self._timed.clear()
+        self._free += self._recorded
+        self._recorded.clear()
+
+
+# ---------------------------------------------------------------------------
 # Paged serving engine
 # ---------------------------------------------------------------------------
 
@@ -81,6 +156,14 @@ class PagedServingEngine:
     admitted-but-not-yet-decoding requests.  Output tokens accumulate in a
     device ring and drain to the host once per block; freed slots are
     recycled at drain boundaries.
+
+    Each ``run`` keeps a ``SpanRecord``: ``run``; ``admit``;
+    ``decode.block`` (the ``_tick_block`` call); ``prefill.round`` with
+    ``prefill.prepare``, ``kv.gather``, ``model.prefill_chunk``,
+    ``kv.scatter`` and ``prefill.finalize``; ``drain`` with ``drain.wait``
+    (the synchronisation and the ring's read) and ``drain.unpack``.  On a
+    card the KV view's gather and scatter, the model and the decode block
+    carry their device time.
     """
 
     def __init__(self, model: LanguageModel, params: dict, n_slots: int = 64,
@@ -126,9 +209,13 @@ class PagedServingEngine:
         self.stats_counters = {
             "host_syncs": 0, "bytes_to_host": 0, "bytes_to_device": 0,
             "drains": 0, "prefill_rounds": 0, "prefill_chunks": 0,
-            "decode_ticks": 0, "stall_ticks": 0,
+            "decode_ticks": 0, "stall_ticks": 0, "kv_view_bytes": 0,
         }
-        self._window_walls: list[tuple[float, int]] = []  # (wall_s, ticks)
+        # what a round's gather and scatter read and write: the view's
+        # source read and the view written, then the view read and written
+        # back, each byte once
+        self._round_view_bytes = 4 * self.kv.view_bytes(prefill_group)
+        self._spans = SpanRecord()
 
     # ------------------------------------------------------- device programs
     def _tick_block(self) -> None:
@@ -190,13 +277,23 @@ class PagedServingEngine:
         """One batched prefill round: G slots advance one chunk each.
         Padded group entries (slot == n_slots, start == -1) gather init
         values, compute garbage, and are never written back."""
-        kv = self.kv
-        slot_idx = to_device(slots, torch.long, self.device)
-        rows = take_fill(kv.table, slot_idx, 0, kv.n_pages)
-        view = kv._gather_impl(kv.cache, rows, slots)
-        logits, view = self.model.prefill_chunk(self.params, {"tokens": tokens},
-                                                view, start)
-        kv._scatter_impl(kv.cache, view, rows, slots)
+        kv, rec = self.kv, self._spans
+        with rec.span("kv.gather") as gather:
+            e0 = rec.mark()
+            slot_idx = to_device(slots, torch.long, self.device)
+            rows = take_fill(kv.table, slot_idx, 0, kv.n_pages)
+            view = kv._gather_impl(kv.cache, rows, slots)
+            e1 = rec.mark()
+        with rec.span("model.prefill_chunk") as model:
+            logits, view = self.model.prefill_chunk(
+                self.params, {"tokens": tokens}, view, start)
+            e2 = rec.mark()
+        with rec.span("kv.scatter") as scatter:
+            kv._scatter_impl(kv.cache, view, rows, slots)
+            e3 = rec.mark()
+        rec.interval(gather, e0, e1)
+        rec.interval(model, e1, e2)
+        rec.interval(scatter, e2, e3)
         return logits
 
     def _finalize(self, logits: torch.Tensor, slot: int, plen: int,
@@ -238,6 +335,20 @@ class PagedServingEngine:
         group (up to ``prefill_group``), one call advances them all."""
         if not self._pf:
             return
+        rec = self._spans
+        with rec.span("prefill.round"):
+            with rec.span("prefill.prepare"):
+                c, members, slots, tokens, starts = self._prepare_round()
+            logits = self._chunk(slots, tokens, starts)
+            self.stats_counters["prefill_rounds"] += 1
+            self.stats_counters["prefill_chunks"] += len(members)
+            self.stats_counters["kv_view_bytes"] += self._round_view_bytes
+            with rec.span("prefill.finalize"):
+                self._finish_round(logits, c, members)
+
+    def _prepare_round(self):
+        """The round's chunk size, members, slots (padded to the group) and
+        its tokens and start positions on the device."""
         _, oldest = next(iter(self._pf.items()))
         c = decompose(len(oldest.req.prompt) - oldest.start, self.chunk_max)[0]
         members = [
@@ -254,10 +365,12 @@ class PagedServingEngine:
             starts[i] = st.start
             slots[i] = slot
         self.stats_counters["bytes_to_device"] += int(tokens.nbytes)
-        logits = self._chunk(slots, to_device(tokens, torch.int32, self.device),
-                             to_device(starts, torch.int32, self.device))
-        self.stats_counters["prefill_rounds"] += 1
-        self.stats_counters["prefill_chunks"] += len(members)
+        return (c, members, slots, to_device(tokens, torch.int32, self.device),
+                to_device(starts, torch.int32, self.device))
+
+    def _finish_round(self, logits: torch.Tensor, c: int,
+                      members: list) -> None:
+        """Advance the members by ``c``; a finished prompt starts decoding."""
         for i, (slot, st) in enumerate(members):
             st.start += c
             if st.start >= len(st.req.prompt):
@@ -268,47 +381,88 @@ class PagedServingEngine:
                 self._remaining_h[slot] = st.req.max_new
 
     def _drain(self, now: int) -> None:
-        host = torch.cat([self.out_buf, self.out_cnt[:, None]], 1).cpu().numpy()
-        out_buf, out_cnt = host[:, :-1], host[:, -1]
-        self.stats_counters["host_syncs"] += 1
-        self.stats_counters["bytes_to_host"] += (
-            self.out_buf.nbytes + self.out_cnt.nbytes)
-        self.stats_counters["drains"] += 1
-        for slot in list(self._active | self._finished):
-            req = self.slot_req[slot]
-            req.out.extend(int(t) for t in out_buf[slot, :out_cnt[slot]])
-            if slot in self._finished or len(req.out) >= req.max_new:
-                req.done = True
-                if req.finish_tick < 0:
-                    req.finish_tick = now
-                self.slot_req[slot] = None
-                self.kv.free(slot)
-                self._active.discard(slot)
-                self._finished.discard(slot)
-        self.out_cnt.zero_()
+        """Flush the device (the block and the rounds queued behind it),
+        read the token ring, then hand each slot its tokens and free the
+        finished ones."""
+        rec = self._spans
+        with rec.span("drain.wait"):
+            sync(self.device)
+            host = torch.cat([self.out_buf, self.out_cnt[:, None]],
+                             1).cpu().numpy()
+        with rec.span("drain.unpack"):
+            rec.resolve()  # every event recorded so far has completed
+            out_buf, out_cnt = host[:, :-1], host[:, -1]
+            self.stats_counters["host_syncs"] += 1
+            self.stats_counters["bytes_to_host"] += (
+                self.out_buf.nbytes + self.out_cnt.nbytes)
+            self.stats_counters["drains"] += 1
+            for slot in list(self._active | self._finished):
+                req = self.slot_req[slot]
+                req.out.extend(int(t) for t in out_buf[slot, :out_cnt[slot]])
+                if slot in self._finished or len(req.out) >= req.max_new:
+                    req.done = True
+                    if req.finish_tick < 0:
+                        req.finish_tick = now
+                    self.slot_req[slot] = None
+                    self.kv.free(slot)
+                    self._active.discard(slot)
+                    self._finished.discard(slot)
+            self.out_cnt.zero_()
 
     # ------------------------------------------------------------------ run
     def run(self, requests: list[Request]) -> dict:
         # re-entrant: a warm engine can serve successive traces
         self.stats_counters = dict.fromkeys(self.stats_counters, 0)
-        self._window_walls = []
+        rec = self._spans = SpanRecord(
+            self.device if self.device.type == "cuda" else None)
         pending = collections.deque(sorted(requests, key=lambda r: r.arrival))
         queue: collections.deque[Request] = collections.deque()
         t0 = time.time()
+        with rec.span("run"):
+            ticks = self._loop(pending, queue)
+        wall = time.time() - t0
+        served = [r for r in requests if not r.rejected]
+        toks = sum(len(r.out) for r in served)
+        per_tick = sorted(w / self.drain_every
+                          for w in _block_windows_ns(rec.spans))
+        stats = {
+            "engine": "paged",
+            "requests": len(requests),
+            "rejected": sum(r.rejected for r in requests),
+            "tokens": toks,
+            "ticks": ticks,
+            "wall_s": wall,
+            "tok_per_s": toks / max(wall, 1e-9),
+            "tick_ms_p50": _pct(per_tick, 0.50) / 1e6,
+            "tick_ms_p99": _pct(per_tick, 0.99) / 1e6,
+            "prefill_stall_fraction": (
+                self.stats_counters["stall_ticks"]
+                / max(ticks + self.stats_counters["stall_ticks"], 1)),
+        }
+        stats.update(self.stats_counters)
+        stats["spans"] = rec.spans
+        return stats
+
+    def _loop(self, pending: collections.deque,
+              queue: collections.deque) -> int:
+        """Serve until every request is done; the ticks it took."""
+        rec = self._spans
         ticks = 0
         ran_block = False
-        window_t0 = t0
         K = self.drain_every
         while (pending or queue or self._active or self._finished
                or self._pf):
-            while pending and pending[0].arrival <= ticks:
-                queue.append(pending.popleft())
-            self._admit(queue, ticks)
+            with rec.span("admit"):
+                while pending and pending[0].arrival <= ticks:
+                    queue.append(pending.popleft())
+                self._admit(queue, ticks)
 
             if self._active:
                 # one device-resident block: K decode ticks, zero host reads
-                window_t0 = time.time()
-                self._tick_block()
+                with rec.span("decode.block") as block:
+                    start = rec.mark()
+                    self._tick_block()
+                    rec.interval(block, start, rec.mark())
                 self.stats_counters["decode_ticks"] += K
                 ran_block = True
                 for slot in list(self._active):
@@ -336,14 +490,8 @@ class PagedServingEngine:
 
             idle = not self._active and not self._pf
             if ran_block or (idle and self._finished):
-                # window = block dispatch -> everything flushed, so the
-                # tick_ms percentiles include interleaved prefill work but
-                # not host-side admission
-                sync(self.device)
-                now = time.time()
-                if ran_block:
-                    self._window_walls.append((now - window_t0, K))
-                self._drain(ticks)
+                with rec.span("drain"):
+                    self._drain(ticks)
                 ran_block = False
             elif (queue and not self._active and not self._pf
                   and not self._finished):
@@ -351,32 +499,22 @@ class PagedServingEngine:
                 req = queue.popleft()
                 req.rejected = True
                 req.done = True
+        return ticks
 
-        wall = time.time() - t0
-        served = [r for r in requests if not r.rejected]
-        toks = sum(len(r.out) for r in served)
-        lat = sorted((r.finish_tick - r.arrival) for r in served
-                     if r.finish_tick >= 0)
-        per_tick = sorted(w / n for w, n in self._window_walls if n)
-        stats = {
-            "engine": "paged",
-            "requests": len(requests),
-            "rejected": sum(r.rejected for r in requests),
-            "tokens": toks,
-            "ticks": ticks,
-            "wall_s": wall,
-            "tok_per_s": toks / max(wall, 1e-9),
-            "p50_latency_ticks": _pct(lat, 0.50),
-            "p99_latency_ticks": _pct(lat, 0.99),
-            "tick_ms_p50": _pct(per_tick, 0.50) * 1e3,
-            "tick_ms_p99": _pct(per_tick, 0.99) * 1e3,
-            "prefill_stall_fraction": (
-                self.stats_counters["stall_ticks"]
-                / max(ticks + self.stats_counters["stall_ticks"], 1)),
-            "page_utilization": self.kv.stats().utilization,
-        }
-        stats.update(self.stats_counters)
-        return stats
+
+def _block_windows_ns(spans: list[Span]) -> list[int]:
+    """Each decode block's window: from its dispatch (the ``decode.block``
+    span's start) to the end of the drain's wait after it, which flushes
+    the block and the prefill rounds queued behind it; so ``tick_ms``
+    holds interleaved prefill work but not admission."""
+    out, start = [], None
+    for s in spans:
+        if s.name == "decode.block":
+            start = s.start_ns
+        elif s.name == "drain.wait" and start is not None:
+            out.append(s.end_ns - start)
+            start = None
+    return out
 
 
 def _pct(sorted_vals: list, q: float) -> float:
@@ -529,6 +667,7 @@ def main() -> None:
                                     max_len=args.max_len,
                                     enc_len=args.enc_len)
         stats = batcher.run(reqs)
+    stats.pop("spans", None)
     print(f"[serve {args.arch}] {stats}")
 
 
