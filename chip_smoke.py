@@ -47,6 +47,15 @@ back to the CPU):
                whose body has a second tile runs it too on the same inputs
                (flash: 128-key tiles on the wgmma body at Dv <= 128; WKV:
                32-step chunks), held to the case's tolerances and timed;
+               the paged decode-attention kernel against the gather path
+               at granite-moe-1b-a400m's serve-cell shapes (bf16 and f32),
+               gemma-2b's, qwen2-vl-72b's, deepseek-7b's and the smoke
+               configs' (PAGED_CASES), also held to PAGED_REL_TOL over
+               the whole output against the gather path in f32, a limit
+               that two controls (the query's own key dropped; P V summed
+               in bf16) must exceed at the serve cells' shapes; timed
+               beside the gather path, SDPA over the gathered view and the
+               live pages' byte bound;
 3b. tuner   -- kernels/ops.py's tuned dispatch through a fresh cache file: a
                miss times each candidate once and persists the winner, a hit
                times nothing, an explicit tile bypasses the tuner; then in
@@ -58,13 +67,21 @@ back to the CPU):
                random weights from seed 0, bf16 compute) serving 6 ragged
                prompts through ``ContinuousBatcher`` (full prefill: the flash
                kernel) and ``PagedServingEngine`` (chunked prefill + paged
-               decode); the launch counts are read around each engine;
+               decode through the paged-attention kernel, once a
+               full-attention layer a tick: the engine's count,
+               ``paged_attention_launches``, held to layers x decode
+               ticks in every served model; the captured block then
+               replayed under torch.profiler, whose trace must hold
+               ``paged_attn_kernel`` once a layer a tick, as many as the
+               engine adds a replay); the launch counts are read around
+               each engine;
                then one more dense run under ``torch.profiler``, whose trace
                gives the flash kernel's device time over the trace's
                prefills (``trace_device_ms``);
 5. parity   -- the same weights in f32 compute: first-token logits of the
                dense path (flash kernel) against the paged path (plain
-               attention), and greedy agreement of the two engines;
+               attention in chunked prefill, the paged-attention kernel in
+               decode), and greedy agreement of the two engines;
 6. serve    -- rwkv6-1.6b at full width (24 layers, d_model 2048, 32 heads
                of 64, vocab 65536, seed 0, bf16 compute), the same prompts
                through both engines; the WKV scan kernel runs once per layer
@@ -204,8 +221,8 @@ back to the CPU):
                the serving example of 10c run beside the orchestrator
                phase 9b;
 11. the kernels JSON line (launches by phase: the main path's, then the
-    tuner's and the benchmarks' children's under their own keys), then the
-    card line, then the result line.
+    tuner's and the benchmarks' children's under their own keys; the paged
+    kernel's by served model), then the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA card or outside the
 repository.
@@ -245,6 +262,9 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:45"
 WKV_SOURCE = "src/repro_torch/kernels/csrc/linear_scan.cu"
 WKV_REPLACES = "src/repro/kernels/linear_scan.py:36"
+PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+PAGED_REPLACES = ("none: src/repro/kernels/ops.py:148 gathers the pages with "
+                  "XLA, then plain attention")
 # relative to max(1, max |plain|): the kernel sums in chunks of 64 with
 # 3xTF32 products (or token by token, the step body), the plain version
 # chunk-parallel through exp of decay differences
@@ -331,6 +351,44 @@ WKV_CASES = [
     ("padded_100", 2, 100, 2, 32, 0.0),
     ("strong_decay", 1, 1000, 32, 64, 3.0),
 ]
+# the paged decode-attention kernel's cases: (name, B, Hkv, G, D, max_pages,
+# page_size, dtype, prompt range, new-token range).  A slot decodes at a
+# prompt drawn log-uniform from the range plus a uniform share of its new
+# tokens, its pages reserved as the engine reserves them; the first two are
+# granite-moe-1b-a400m's serve cells at their mixes' lengths
+# (portbench/traffic/serve_{long,short}.json), the rest the other paged
+# models' decode (gemma-2b MQA at D 256, qwen2-vl-72b G 8 at D 128,
+# deepseek-7b G 1 at D 128) at phase_serve's engine (8 slots, 64 pages of
+# 16) and the smoke configs' head dims
+PAGED_CASES = [
+    ("granite_serve_long", 64, 8, 2, 64, 256, 16, torch.bfloat16,
+     (1024, 3968), (32, 127)),
+    ("granite_serve_short", 64, 8, 2, 64, 64, 16, torch.bfloat16, (32, 512),
+     (128, 511)),
+    ("granite_serve_short_f32", 64, 8, 2, 64, 64, 16, torch.float32,
+     (32, 512), (128, 511)),
+    ("gemma_decode", 8, 1, 8, 256, 64, 16, torch.bfloat16, (97, 1000),
+     (1, 16)),
+    ("qwen2vl_decode", 8, 8, 8, 128, 64, 16, torch.bfloat16, (97, 1000),
+     (1, 16)),
+    ("deepseek7b_decode", 8, 32, 1, 128, 64, 16, torch.bfloat16, (97, 1000),
+     (1, 16)),
+    ("smoke_d16", 3, 2, 2, 16, 8, 16, torch.float32, (5, 60), (4, 24)),
+    ("smoke_d32", 3, 1, 4, 32, 8, 16, torch.bfloat16, (5, 60), (4, 24)),
+]
+# the kernel against the gather path on active rows: in bf16 the gather
+# path rounds P to bf16 before P V, the kernel keeps f32 to the end
+PAGED_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# beside PAGED_TOL, by q's dtype, the relative error over the active rows,
+# ||out - ref|| / ||ref||, against the gather path in f32 over the same
+# pools: at serve.long's ~2,200 live keys an output is of order 0.035,
+# where PAGED_TOL's absolute term alone would pass a kernel that drops the
+# query's own key or sums P V in bf16.  Limits from sound runs' readings
+# and those two controls (PERF.md); the controls are held above the limit
+# in PAGED_CONTROL_CASES, the shapes of the serve cells
+PAGED_REL_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+PAGED_CONTROL_CASES = ("granite_serve_long", "granite_serve_short",
+                       "granite_serve_short_f32")
 # cases where the WKV scan's step body is timed beside the chunked one
 PREV_WKV_BODY_CASES = ("rwkv6_prefill", "chunk_round")
 PROMPT_LENS = [97, 1000, 351, 742, 180, 563]
@@ -391,7 +449,8 @@ NO_SPILL = ("flash_fwd_wgmma_kernelILi256ELi256E",
             "flash_fwd_wgmma_kernelILi80ELi80E",
             "flash_fwd_wgmma_kernelILi96ELi64E",
             "flash_fwd_wgmma_kernelILi64ELi64E",
-            "wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
+            "wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel",
+            "paged_attn_kernel", "paged_attn_merge_kernel")
 # the second tiles: flash's 128-key tiles on the wgmma body, where
 # the body has them (Dv <= 128), and the WKV chunked body's 32-step chunks
 SECOND_BLOCK_K, SECOND_CHUNK = 128, 32
@@ -405,6 +464,8 @@ FIT_N = (16, 32, 64)
 # the kernels each wrapper launches, as torch.profiler names them
 FLASH_KERNELS = ("flash_fwd", "flash_merge")
 WKV_KERNELS = ("wkv_chunk_kernel", "wkv_state_scan_kernel", "wkv_out_kernel")
+# the paged engine's kernel launches, by served model (phase_serve)
+PAGED_LAUNCHES: dict[str, int] = {}
 MAX_NEW = 16
 # the trace that holds the paged engine's CUDA-graph decode block against
 # the eager block: six requests (prompt length, new tokens) on three slots,
@@ -1019,6 +1080,166 @@ def _wkv_check(name, body, outs, refs) -> float:
     return err
 
 
+def _paged_inputs(case, seed: int):
+    """A pool as the paged engine leaves it (PAGED_CASES): each slot's
+    reserved pages drawn from a shuffled pool, positions -1 past the
+    query's own, the rest of the row unallocated, the trash page NaN."""
+    name, B, Hkv, G, D, P, ps, dt, (plo, phi), (nlo, nhi) = case
+    rng = np.random.RandomState(seed)
+    prompt = np.exp(rng.uniform(np.log(plo), np.log(phi), B)).astype(int)
+    new = rng.randint(nlo, nhi + 1, B)
+    pos_q = np.minimum(prompt + rng.randint(0, new), P * ps - 1)
+    n_pages = B * P
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kp = torch.randn((n_pages + 1, ps, Hkv, D), generator=g, device="cuda")
+    vp = torch.randn((n_pages + 1, ps, Hkv, D), generator=g, device="cuda")
+    kp[n_pages], vp[n_pages] = math.nan, math.nan
+    posp = torch.full((n_pages + 1, ps), -1, dtype=torch.int32)
+    table = torch.full((B, P), n_pages, dtype=torch.int32)
+    free = rng.permutation(n_pages).tolist()
+    for b in range(B):
+        for lp in range(min(P, -(-(prompt[b] + new[b] + 1) // ps))):
+            page = free.pop()
+            table[b, lp] = page
+            t = lp * ps + torch.arange(ps)
+            posp[page] = torch.where(t <= int(pos_q[b]), t, -1).int()
+    q = torch.randn((B, 1, Hkv * G, D), generator=g, device="cuda")
+    return (q.to(dt), kp.to(dt), vp.to(dt), posp.cuda(), table.cuda(),
+            torch.tensor(pos_q, dtype=torch.int32, device="cuda")[:, None])
+
+
+def _paged_bound(args) -> float:
+    """The least time of one call, ms: the live keys' K, V and positions,
+    the table entries of their pages, q and out, each moved once, over
+    PEAK_BYTES (about one FLOP a byte: bytes bound it)."""
+    q, kp, _, _, table, pos_q = args
+    live = (pos_q[:, 0].long() + 1).clamp(min=0)
+    ps, Hkv, D = kp.shape[1:]
+    keys = int(live.sum())
+    pages = int((-(-live // ps)).sum())
+    nbytes = (keys * (2 * Hkv * D * kp.element_size() + 4) + pages * 4
+              + 2 * q.numel() * q.element_size())
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def _paged_controls(args, ref32, active) -> dict[str, float]:
+    """Relative errors against ``ref32`` (the f32 gather path) of two faulty
+    computations: ``own_key_dropped``, the f32 gather path with each
+    query's own key masked out; ``bf16_pv``, the f32 softmax with P V
+    summed key by key, in position order, into a bf16 accumulator."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _mask
+    from repro_torch.utils import take_fill
+
+    q, kp, vp, posp, table, pos_q = args
+    B, P = table.shape
+    n_pages, ps = posp.shape[0] - 1, posp.shape[1]
+    Hkv, D = kp.shape[2:]
+    G = q.shape[2] // Hkv
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    own = posp.clone()
+    pq = pos_q[:, 0].long()
+    b = torch.nonzero(pq >= 0)[:, 0]
+    own[table[b, pq[b] // ps].long(), pq[b] % ps] = -1
+    dropped = ops.paged_attention_gather(qf, kf, vf, own, table, pos_q)
+    flat = table.reshape(-1)
+    n = int(pq.max()) + 1  # keys past every query's position weigh 0
+    k, v = (take_fill(t, flat, 0, 0, bound=n_pages)
+            .reshape(B, P * ps, Hkv, D)[:, :n].repeat_interleave(G, 2)
+            for t in (kf, vf))
+    pos_k = take_fill(posp, flat, 0, -1, bound=n_pages).reshape(B, P * ps)
+    s = torch.einsum("bhd,bkhd->bhk", qf[:, 0], k) * D ** -0.5
+    mask = _mask(pq[:, None, None], pos_k[:, None, :n], True, 0)
+    p = torch.softmax(torch.where(mask, s, -math.inf), -1).nan_to_num(0.0)
+    acc = torch.zeros((B, q.shape[2], D), dtype=torch.bfloat16,
+                      device=q.device)
+    for j in range(n):
+        acc = (acc.float() + p[:, :, j, None] * v[:, j]).to(torch.bfloat16)
+    return {"own_key_dropped": _rel_err(dropped[active], ref32[active]),
+            "bf16_pv": _rel_err(acc[:, None][active], ref32[active])}
+
+
+def phase_paged_kernel() -> list[dict]:
+    """The paged decode-attention kernel's cases (PAGED_CASES) against the
+    gather path (``ops.paged_attention_gather``, the port's path before the
+    kernel), on the active rows to PAGED_TOL, and to PAGED_REL_TOL against
+    the gather path in f32, a limit the controls (``_paged_controls``)
+    must exceed in PAGED_CONTROL_CASES; with its time beside the
+    gather path's, SDPA's over the view the gather path builds (gathered
+    and expanded to the query heads beforehand: a yardstick the port never
+    calls) and the live pages' byte bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.attention import _mask
+    from repro_torch.utils import take_fill
+
+    results = []
+    for case in PAGED_CASES:
+        name, B, Hkv, G, D, P, ps, dt = case[:8]
+        args = _paged_inputs(case, seed=len(results))
+        out = ops.paged_attention(*args)
+        torch.cuda.synchronize()
+        ref = ops.paged_attention_gather(*args)
+        q, kp, vp, posp, table, pos_q = args
+        ref32 = ops.paged_attention_gather(q.float(), kp.float(), vp.float(),
+                                           posp, table, pos_q)
+        active = pos_q[:, 0] >= 0
+        diff = (out[active].float() - ref[active].float()).abs()
+        err, rel = float(diff.max()), _rel_err(out[active], ref32[active])
+        tol, rel_tol = PAGED_TOL[dt], PAGED_REL_TOL[dt]
+        controls = _paged_controls(args, ref32, active)
+        if not bool(torch.isfinite(out).all()) or bool(
+                (diff > tol + tol * ref[active].float().abs()).any()) \
+                or rel > rel_tol:
+            raise AssertionError(f"[paged] {name}: kernel disagrees with the "
+                                 f"gather path, max abs err {err}, relative "
+                                 f"{rel} (limit {rel_tol}; controls "
+                                 f"{controls})")
+        if name in PAGED_CONTROL_CASES and min(controls.values()) <= rel_tol:
+            raise AssertionError(f"[paged] {name}: the relative limit "
+                                 f"{rel_tol} passes a control {controls}")
+        ms = cuda_ms(lambda: ops.paged_attention(*args))
+        dev_kernels = {}
+        dev_ms = device_ms(lambda: ops.paged_attention(*args),
+                           by_kernel=dev_kernels)
+        plain_ms = cuda_ms(lambda: ops.paged_attention_gather(*args), reps=5)
+        plain_device_ms = device_ms(lambda: ops.paged_attention_gather(*args))
+        flat = table.reshape(-1)
+        n_pages = posp.shape[0] - 1
+        kv = [take_fill(t, flat, 0, 0, bound=n_pages).to(dt)
+              .reshape(B, P * ps, Hkv, D).repeat_interleave(G, 2)
+              .transpose(1, 2) for t in (kp, vp)]
+        pos_k = take_fill(posp, flat, 0, -1, bound=n_pages).reshape(B, P * ps)
+        mask = _mask(pos_q[:, None, :, None], pos_k[:, None, None, :], True, 0)
+        qt = q.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kv[0], kv[1],
+                                                  attn_mask=mask)
+
+        lib_kernels = {}
+        library_device_ms = device_ms(lib, by_kernel=lib_kernels)
+        row = dict(case=name, shape=[B, Hkv * G, Hkv, D, P, ps],
+                   dtype=str(dt).replace("torch.", ""), max_abs_err=err,
+                   tol=tol, rel_err=rel, rel_tol=rel_tol,
+                   controls_rel_err=controls, live_keys=int((pos_q[:, 0] + 1).clamp(min=0)
+                                          .sum()),
+                   view_keys=B * P * ps, body="fma",
+                   splits=pa.page_split(B, Hkv, G, P, ps)[1], ms=ms,
+                   device_ms=dev_ms, device_ms_by_kernel=dev_kernels,
+                   plain_ms=plain_ms, plain_device_ms=plain_device_ms,
+                   library_ms=cuda_ms(lib), library_device_ms=library_device_ms,
+                   library_backend=_sdpa_backend(lib_kernels),
+                   bound_ms=_paged_bound(args), bound_by="bytes")
+        log(f"[paged] {json.dumps(row)}")
+        del args, kv, out, ref, ref32
+        torch.cuda.empty_cache()
+        results.append(row)
+    return results
+
+
 def phase_wkv_kernel() -> list[dict]:
     """The WKV scan's cases (WKV_CASES): the chunked body, the default, and
     the step body on the same inputs (``_body="step"``)."""
@@ -1283,6 +1504,25 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
         raise AssertionError(f"[serve] paged {name} launches "
                              f"{launches['paged']} != {paged_launches(pstats)} "
                              f"(others {others})")
+    # the decode block's paged-attention kernel: once a full-attention
+    # layer a tick, eager, captured or replayed (the engine's count, which
+    # adds the launches its captured block holds at every replay); then the
+    # captured block replayed under torch.profiler, whose trace must hold
+    # paged_attn_kernel once a layer a tick of the block
+    paged = pstats["paged_attention_launches"]
+    layers = 0 if cfg.use_mla else sum(t == "attn" for t in cfg.layer_types())
+    traced = _paged_replays_traced(eng)
+    log(f"[serve] {cfg.name} paged: paged_attention launches {paged} "
+        f"({layers} layers x {pstats['decode_ticks']} decode ticks); the "
+        f"captured block replayed under torch.profiler: {traced}")
+    if paged != layers * pstats["decode_ticks"] or not (
+            traced["kernels"] == traced["engine_adds"]
+            == traced["replays"] * layers * eng.drain_every):
+        raise AssertionError(f"[serve] paged {cfg.name}: {paged} "
+                             f"paged_attention launches, not {layers} x "
+                             f"{pstats['decode_ticks']}, or the trace's "
+                             f"{traced}")
+    PAGED_LAUNCHES[f"{cfg.name} paged"] = paged
     for r in dense_reqs + paged_reqs:
         if not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"[serve] token out of vocab in {r.rid}")
@@ -1293,6 +1533,31 @@ def phase_serve(model, params, kernel, per_prefill, paged_launches,
         f"other places, so bf16 streams may part)")
     _graph_matches_eager(model, params)
     return launches
+
+
+def _paged_replays_traced(eng, replays: int = 2,
+                          tries: int = 3) -> dict[str, int]:
+    """The engine's captured decode block, after its run, replayed
+    ``replays`` times under ``torch.profiler`` (every slot inactive now, as
+    between waves: each tick appends to the trash page and attends over
+    nothing): the trace's ``paged_attn_kernel`` launches (the merge kernel
+    not counted) and what the engine's count adds for as many replays.  A
+    trace without device events is taken again; after ``tries`` the run
+    fails."""
+    def replay():
+        for _ in range(replays):
+            eng._graph.replay()
+
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        _, _, events, _ = _profiled(replay)
+        if events:
+            return {"replays": replays,
+                    "kernels": sum("paged_attn_kernel" in e.name
+                                   for e in events),
+                    "engine_adds": replays * eng._graph_launches}
+    raise AssertionError(f"[serve] {tries} profiler traces of the paged "
+                         f"engine's block held no device events")
 
 
 def _graph_matches_eager(model, params) -> None:
@@ -3462,6 +3727,7 @@ def main() -> None:
     ptxas = phase_build()
     flash_rows = phase_kernels()
     wkv_rows = phase_wkv_kernel()
+    paged_rows = phase_paged_kernel()
     stamp("kernels")
     tuned = {"tuner": phase_tuner(), **phase_tuner_benches(card)}
     stamp("tuner and kernel benchmarks")
@@ -3572,6 +3838,11 @@ def main() -> None:
                       prev_body_device_ms=wkv_rows[0].get(
                           "prev_body_device_ms"),
                       trace_device_ms=wkv_trace_ms),
+        _kernel_entry("paged_attention", PAGED_SOURCE, PAGED_REPLACES,
+                      PAGED_LAUNCHES, paged_rows,
+                      "F.scaled_dot_product_attention over the gathered "
+                      "view", {f: r for f, r in ptxas.items()
+                               if "paged" in f}),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

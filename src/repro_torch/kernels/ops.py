@@ -10,8 +10,11 @@ kernel's wrapper (``kernels/linear_scan.py``): on a CUDA tensor it runs the
 chunked body (32- or 64-step chunks as 3xTF32 tensor-core products, three
 launches) at every shape, and the per-step body only when a caller asks for
 it with ``_body="step"``; a failed launch raises, nothing falls back.
-``paged_attention`` is a gather plus the plain ``attention_core``, as in
-the JAX package -- not a kernel.
+``paged_attention`` is the hand-written Hopper kernel's wrapper
+(``kernels/paged_attention.py``): decode attention that reads each slot's
+live pages through the block table in the pools' own dtype.  On a CPU
+tensor it is the gather plus the plain ``attention_core`` of the JAX
+package.
 
 Tile selection (``kernels/autotune.py``), with the reference's rules
 (``repro/kernels/ops.py``):
@@ -35,6 +38,7 @@ import torch
 from repro_torch.kernels import autotune as _at
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import linear_scan as _ls
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.utils import take_fill
 
 DEFAULT_BLOCK_Q = _fa.BLOCK_Q
@@ -126,22 +130,39 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     """Decode attention over a paged KV pool.
 
     q: (B, 1, Hq, Dk); kp/vp: (n_pages + 1, page_size, Hkv, D) pools whose
-    last page is the write-only trash page (``paged_kv_cache_specs``);
-    posp: (n_pages + 1, page_size) absolute positions (-1 = empty);
-    table: (B, max_pages) block table, entries == n_pages = unallocated.
+    last page is the write-only trash page (``paged_kv_cache_specs``), in
+    their own dtype; posp: (n_pages + 1, page_size) absolute positions (-1 =
+    empty); table: (B, max_pages) block table, entries == n_pages =
+    unallocated.  The output has q's dtype.
 
-    Gathers each slot's pages into a contiguous (B, max_pages * page_size)
-    view; unallocated entries read k = v = 0 and pos = -1 (``take_fill``), so
-    the position mask in ``attention_core`` drops them exactly.
+    On a CUDA tensor the kernel runs (``kernels/paged_attention.py``), or
+    the call raises; a DTensor raises there too, as no engine pages under a
+    mesh.  On a CPU tensor the gather path runs (``paged_attention_gather``).
     """
+    if q.device.type == "cuda":
+        return _pa.paged_attention(q, kp, vp, posp, table, pos_q,
+                                   causal=causal, window=window, scale=scale)
+    return paged_attention_gather(q, kp, vp, posp, table, pos_q,
+                                  causal=causal, window=window, scale=scale)
+
+
+def paged_attention_gather(q: torch.Tensor, kp: torch.Tensor,
+                           vp: torch.Tensor, posp: torch.Tensor,
+                           table: torch.Tensor, pos_q: torch.Tensor, *,
+                           causal: bool = True, window: int = 0,
+                           scale: float | None = None) -> torch.Tensor:
+    """The plain path, as in the JAX package: each slot's pages gathered
+    into a contiguous (B, max_pages * page_size) view in q's dtype, then
+    ``attention_core``.  Unallocated entries read k = v = 0 and pos = -1
+    (``take_fill``), so the position mask drops them exactly."""
     from repro_torch.models.attention import attention_core  # import cycle
 
     n_pages = posp.shape[0] - 1
     B, P = table.shape
     ps = kp.shape[1]
     flat = table.reshape(-1)
-    k = take_fill(kp, flat, 0, 0, bound=n_pages).reshape(B, P * ps, *kp.shape[2:])
-    v = take_fill(vp, flat, 0, 0, bound=n_pages).reshape(B, P * ps, *vp.shape[2:])
+    k, v = (take_fill(t, flat, 0, 0, bound=n_pages).to(q.dtype)
+            .reshape(B, P * ps, *t.shape[2:]) for t in (kp, vp))
     pos_k = take_fill(posp, flat, 0, -1, bound=n_pages).reshape(B, P * ps)
     return attention_core(q, k, v, pos_q, pos_k, causal=causal, window=window,
                           scale=scale)

@@ -20,7 +20,8 @@ interface:
     unchunked ``prefill`` at admission -- the path that runs the flash
     kernel (attention) or the WKV scan kernel (RWKV-6) -- and one host read
     per tick.  The paged engine's chunked prefill runs the WKV scan kernel
-    too, once per rwkv layer per prefill round.
+    too, once per rwkv layer per prefill round, and its decode ticks the
+    paged-attention kernel, once per attention layer per tick.
 
 Both report ``host_syncs`` and device<->host byte counters in their stats.
 The paged engine also returns its span record (``stats["spans"]``): the
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import list_configs
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.launch.paged_kv import PagedKVCache, decompose
 from repro_torch.models import LanguageModel
 from repro_torch.utils import Spec, sync, take_fill, to_device, tree_map
@@ -196,6 +198,7 @@ class PagedServingEngine:
         # first block, captured on it by the second (_tick_block)
         self._graph: torch.cuda.CUDAGraph | None = None
         self._graph_stream = None
+        self._graph_launches = 0  # paged-attention launches the graph holds
 
         # host mirrors (decode emission is deterministic: one token per
         # active slot per tick, so no device reads are needed to schedule)
@@ -210,6 +213,7 @@ class PagedServingEngine:
             "host_syncs": 0, "bytes_to_host": 0, "bytes_to_device": 0,
             "drains": 0, "prefill_rounds": 0, "prefill_chunks": 0,
             "decode_ticks": 0, "stall_ticks": 0, "kv_view_bytes": 0,
+            "paged_attention_launches": 0,
         }
         # what a round's gather and scatter read and write: the view's
         # source read and the view written, then the view read and written
@@ -227,11 +231,15 @@ class PagedServingEngine:
         weights, the cache pools, the block table and the slot state, all
         updated in place -- without the host's ~2,000 launches a tick,
         which held a 64-slot tick to a 4-slot one's wall (ROADMAP fault
-        6).  Decode reaches no hand-written kernel, so no launch counter
-        misses a replay."""
+        6).  Each attention layer of a tick launches the paged-attention
+        kernel (``kernels/paged_attention.py``), whose Python counter moves
+        only while the block runs eagerly or is captured: the engine keeps
+        the launches its captured block holds and adds them at every
+        replay, as ``stats["paged_attention_launches"]``."""
         if self.device.type != "cuda":
             self._decode_ticks()
             return
+        before = _pa.launches
         if self._graph is None:
             if self._graph_stream is None:  # first block: eager, warming
                 self._graph_stream = torch.cuda.Stream(self.device)
@@ -241,12 +249,16 @@ class PagedServingEngine:
                     self._decode_ticks()
                 torch.cuda.current_stream(self.device).wait_stream(
                     self._graph_stream)
+                self.stats_counters["paged_attention_launches"] += (
+                    _pa.launches - before)
                 return
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=self._graph_stream):
                 self._decode_ticks()
             self._graph = graph
+            self._graph_launches = _pa.launches - before
         self._graph.replay()
+        self.stats_counters["paged_attention_launches"] += self._graph_launches
 
     def _decode_ticks(self) -> None:
         """The block's device work: argmax, the token ring and the per-slot

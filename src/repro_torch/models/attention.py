@@ -36,8 +36,8 @@ from repro_torch.distributed.sharding import (constrain, current_mesh_info,
                                               einsum, is_dtensor,
                                               replicate_like, shard_map)
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import (Param, apply_rope, dense_init,
-                                       torch_dtype)
+from repro_torch.models.layers import (Param, dense_init, rope_dim,
+                                       rope_sin_cos, rotate, torch_dtype)
 from repro_torch.utils import Spec
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -63,6 +63,13 @@ class ModelCtx:
     #: (pos_q = pos_k = 0..S-1 in every row, and the encoder's frames
     #: 0..S_enc-1), the case the flash kernel takes
     contiguous: bool = False
+    #: decode: RoPE's (sin, cos) at ``positions`` for the attention layers'
+    #: heads (``layers.rope_sin_cos``), computed once a step by
+    #: ``LanguageModel.decode_step`` rather than again in every layer
+    rope: tuple[torch.Tensor, torch.Tensor] | None = None
+    #: paged decode: the (page, offset) pool row each slot's new token is
+    #: written to (``paged_rows``), computed once a step likewise
+    page_rows: tuple[torch.Tensor, torch.Tensor] | None = None
 
     @property
     def pos2d(self) -> torch.Tensor:
@@ -506,22 +513,29 @@ def paged_kv_cache_specs(n_pages: int, page_size: int, n_kv: int, dk: int,
     }
 
 
-def paged_append(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor,
-                 pos: torch.Tensor, table: torch.Tensor) -> dict:
-    """Append one token per slot into the page pool (decode), in place.
-
-    k_t: (B, 1, H, D); pos: (B,) absolute positions; table: (B, P).
-    Slots with pos < 0 (inactive), positions past the slot's capacity and
-    unallocated logical pages all write the trash page, so a dead slot can
-    never corrupt pages that have been recycled to another request."""
-    n_pages = cache["pos"].shape[0] - 1
-    ps = cache["pos"].shape[1]
+def paged_rows(pos: torch.Tensor, table: torch.Tensor, n_pages: int,
+               page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(page, offset) of the pool row each slot's token at ``pos`` (B,)
+    goes to through ``table`` (B, P).  Slots with pos < 0 (inactive),
+    positions past the slot's capacity and unallocated logical pages all
+    get the trash page ``n_pages``, so a dead slot can never corrupt pages
+    that have been recycled to another request."""
     P = table.shape[1]
-    valid = (pos >= 0) & (pos < P * ps)
-    lpage = (pos // ps).clamp(0, P - 1).long()
+    valid = (pos >= 0) & (pos < P * page_size)
+    lpage = (pos // page_size).clamp(0, P - 1).long()
     page = table.gather(1, lpage[:, None])[:, 0]
     page = torch.where(valid, page, n_pages).long()
-    off = (pos % ps).long()
+    return page, (pos % page_size).long()
+
+
+def paged_append(cache: dict, k_t: torch.Tensor, v_t: torch.Tensor,
+                 pos: torch.Tensor,
+                 rows: tuple[torch.Tensor, torch.Tensor]) -> dict:
+    """Append one token per slot into the page pool (decode), in place.
+
+    k_t: (B, 1, H, D); pos: (B,) absolute positions; rows: ``paged_rows``
+    of ``pos`` through the step's block table."""
+    page, off = rows
     cache["k"][page, off] = k_t[:, 0].to(cache["k"].dtype)
     cache["v"][page, off] = v_t[:, 0].to(cache["v"].dtype)
     cache["pos"][page, off] = pos.to(cache["pos"].dtype)
@@ -630,8 +644,9 @@ def apply_attention(
     k = einsum("bsd,dhk->bshk", x, p["w_k"].to(cdt))
     v = einsum("bsd,dhk->bshk", x, p["w_v"].to(cdt))
     if cfg.pos_type in ("rope", "mrope"):
-        q = apply_rope(q, ctx.positions, cfg)
-        k = apply_rope(k, ctx.positions, cfg)
+        sin, cos = ctx.rope or rope_sin_cos(
+            ctx.positions, cfg, rope_dim(cfg, q.shape[-1]), x.device)
+        q, k = rotate(q, sin, cos), rotate(k, sin, cos)
     new_cache = None
     if cache is None:  # train / encode: attend within the computed seq
         if ctx.contiguous:  # the encoder of a full prefill
@@ -641,12 +656,11 @@ def apply_attention(
                                window=window)
     elif ctx.mode == "decode" and paged:
         # page-pool cache: scatter the new token through the block table,
-        # then attend over the slot's gathered pages
-        new_cache = paged_append(cache, k, v, ctx.cache_pos, ctx.table)
+        # then attend over the slot's pages in the pools' own dtype
+        new_cache = paged_append(cache, k, v, ctx.cache_pos, ctx.page_rows)
         o = kops.paged_attention(
-            q, new_cache["k"].to(cdt), new_cache["v"].to(cdt),
-            new_cache["pos"], ctx.table, pos_q, causal=ctx.causal,
-            window=window)
+            q, new_cache["k"], new_cache["v"], new_cache["pos"], ctx.table,
+            pos_q, causal=ctx.causal, window=window)
     elif ctx.mode == "decode":
         new_cache = append_cache(cache, {"k": k, "v": v}, ctx.cache_pos)
         kv_ax = cache_axes(cfg.n_kv_heads)

@@ -136,10 +136,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                rot_dim: int | None = None) -> torch.Tensor:
     """x: (batch, seq, heads, head_dim); positions: (batch, seq) int, or
     (3, batch, seq) for M-RoPE (temporal / height / width coordinates)."""
-    head_dim = x.shape[-1]
+    rot = rope_dim(cfg, x.shape[-1], rot_dim)
+    return rotate(x, *rope_sin_cos(positions, cfg, rot, x.device))
+
+
+def rope_dim(cfg: ModelConfig, head_dim: int, rot_dim: int | None = None) -> int:
+    """The rotated sub-dimension of a head of ``head_dim``."""
     rot = rot_dim if rot_dim is not None else int(head_dim * cfg.rope_fraction)
-    rot = min(rot, head_dim)
-    inv_freq = replicate(rope_freqs(cfg, rot, x.device))
+    return min(rot, head_dim)
+
+
+def rope_sin_cos(positions: torch.Tensor, cfg: ModelConfig, rot: int,
+                 device) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin and cos of the rotation angles, (b, s, 1, rot/2) each."""
+    inv_freq = replicate(rope_freqs(cfg, rot, device))
     if cfg.pos_type == "mrope":
         sections = cfg.mrope_sections  # in frequency pairs, summing to rot/2
         if positions.ndim != 3 or sum(sections) != rot // 2:
@@ -153,14 +163,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                            for c in range(len(sections))], dim=-1)
     else:
         angle = positions.float()[..., None] * inv_freq  # (b, s, rot/2)
-    sin = torch.sin(angle)[..., None, :]  # (b, s, 1, rot/2)
-    cos = torch.cos(angle)[..., None, :]
+    return torch.sin(angle)[..., None, :], torch.cos(angle)[..., None, :]
+
+
+def rotate(x: torch.Tensor, sin: torch.Tensor,
+           cos: torch.Tensor) -> torch.Tensor:
+    """x rotated by ``rope_sin_cos``'s angles on its first rot dims."""
+    rot = 2 * sin.shape[-1]
     x1 = x[..., : rot // 2].float()
     x2 = x[..., rot // 2: rot].float()
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     parts = [out1.to(x.dtype), out2.to(x.dtype)]
-    if rot < head_dim:
+    if rot < x.shape[-1]:
         parts.append(x[..., rot:])
     return torch.cat(parts, dim=-1)
 

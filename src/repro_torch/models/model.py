@@ -23,9 +23,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, embedding, matmul,
                                               replicate)
 from repro_torch.models import transformer as tfm
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import ModelCtx
 from repro_torch.models.layers import (Param, apply_norm, embed_init,
-                                       init_norm, sinusoidal_positions, split,
+                                       init_norm, rope_dim, rope_sin_cos,
+                                       sinusoidal_positions, split,
                                        torch_dtype)
 from repro_torch.utils import Spec, tree_map
 
@@ -378,8 +380,35 @@ class LanguageModel:
         if self.cfg.pos_type == "mrope":
             positions = positions.expand(3, B, 1)
         ctx = ModelCtx(mode="decode", positions=positions, cache_pos=pos,
-                       table=table)
+                       table=table, **self._step_shared(cache, positions, pos,
+                                                        table))
         x = self._embed(params, tokens)
         x = self._add_positions(params, x, positions)
         x, cache, _ = self._backbone(params, x, cache, ctx)
         return self._head(params, x)[:, 0], cache
+
+    def _step_shared(self, cache: dict, positions: torch.Tensor,
+                     pos: torch.Tensor, table: torch.Tensor | None) -> dict:
+        """What every attention layer of a decode step would compute alike,
+        computed once for ``ModelCtx``: RoPE's sin and cos (``rope``) and,
+        with a block table, the pool rows of the paged layers' appends
+        (``page_rows``; every pool has the first one's pages).  In the
+        paged engine's CUDA-graph decode block each is otherwise a few
+        kernels a layer."""
+        cfg = self.cfg
+        if cfg.use_mla:  # MLA rotates its own sub-dimension, pages nothing
+            return {}
+        kinds = [(i, j, t) for i, seg in enumerate(self.dec_segments)
+                 for j, (t, _) in enumerate(seg.kinds)]
+        out = {}
+        if cfg.pos_type in ("rope", "mrope") and any(
+                t in ("attn", "swa", "xattn") for *_, t in kinds):
+            out["rope"] = rope_sin_cos(positions, cfg,
+                                       rope_dim(cfg, cfg.head_dim),
+                                       positions.device)
+        paged = [(i, j) for i, j, t in kinds if t == "attn"]
+        if table is not None and paged:
+            pools = cache[f"seg{paged[0][0]}"][f"sub{paged[0][1]}"]["pos"]
+            out["page_rows"] = attn_mod.paged_rows(
+                pos, table, pools.shape[-2] - 1, pools.shape[-1])
+        return out

@@ -9,9 +9,11 @@ against the CPU; the encoder-decoder path's non-causal shapes (whisper's
 encoder and cross-attention, 1500 keys: a ragged last key tile) and
 qwen2-vl's GQA 64/8 at D 128; whisper's smoke prefill then decode on the
 card against a full prefill and against the CPU; train steps on the
-card against the same steps on the CPU, which launch neither kernel; and
-the Common Crawl assets on the card, byte for byte against the CPU and
-across runs, alone and materialized through the orchestrator.
+card against the same steps on the CPU, which launch neither kernel; the
+paged decode-attention kernel against the gather path at the served
+shapes, in a CUDA graph, and counted by the paged engine; and the Common
+Crawl assets on the card, byte for byte against the CPU and across runs,
+alone and materialized through the orchestrator.
 
 Run on a machine with an NVIDIA card (no JAX needed there):
 
@@ -30,6 +32,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.data import TokenDataset  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import linear_scan as ls  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.launch.train import make_train_step, smoke_config  # noqa: E402
 from repro_torch.models import LanguageModel  # noqa: E402
 from repro_torch.optim import AdamW, OptConfig  # noqa: E402
@@ -767,3 +771,215 @@ def test_paged_graph_decode_matches_eager_bitwise(arch):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert [r.out for r in g_reqs] == [r.out for r in e_reqs]
     assert all(len(r.out) == r.max_new for r in g_reqs)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+PAGED_GPU_CASES = [
+    # (B, Hkv, G, D, max_pages, page_size, window, q dtype, pool dtype):
+    # granite-moe-1b-a400m's serve cells (16 ranges of 16 pages; 8 of 8),
+    # also in f32; gemma-2b (MQA, G 8 at D 256), qwen2-vl-72b (G 8 at D
+    # 128), deepseek-7b (G 1 at D 128); the smoke configs' D 16 and 32
+    # (one range), in bf16, f32 and mixed; a window over 32-token pages; a
+    # group of 3 (chunks of 1) over 24-token pages (no shift)
+    (64, 8, 2, 64, 256, 16, 0, BF16, BF16),
+    (64, 8, 2, 64, 64, 16, 0, BF16, BF16),
+    (64, 8, 2, 64, 64, 16, 0, F32, F32),
+    (8, 1, 8, 256, 64, 16, 0, BF16, BF16),
+    (8, 8, 8, 128, 64, 16, 0, BF16, BF16),
+    (8, 32, 1, 128, 64, 16, 0, BF16, BF16),
+    (3, 2, 2, 16, 8, 16, 0, BF16, BF16),
+    (3, 2, 2, 16, 8, 16, 0, F32, F32),
+    (3, 1, 4, 32, 8, 16, 0, BF16, BF16),
+    (3, 1, 4, 32, 8, 16, 0, F32, BF16),
+    (3, 4, 1, 16, 8, 16, 0, BF16, F32),
+    (5, 2, 2, 64, 40, 32, 100, BF16, BF16),
+    (4, 2, 3, 64, 20, 24, 0, BF16, BF16),
+]
+
+
+def _paged_gpu_inputs(case, seed=0):
+    """A pool as the paged engine leaves it, on the card: every slot's
+    pages drawn from a shuffled pool, positions -1 past the query's own
+    (the allocation-time reset) with stale K/V there, a spare page past the
+    query's page, the rest of the row unallocated; the first slot inactive
+    (pos_q -1), the second ending on a page edge, the others ragged (at
+    max_pages 256 log-uniform over 1,024-3,968 + 32-127, as serve.long);
+    the trash page holds NaN and positions the mask would pass."""
+    import numpy as np
+
+    B, Hkv, G, D, P, ps, window, qdt, kvdt = case
+    rng = np.random.RandomState(seed)
+    cap = P * ps - 1
+    if P >= 256:
+        lens = np.exp(rng.uniform(np.log(1024), np.log(3968), B)).astype(int)
+        lens += rng.randint(32, 128, B)
+    else:
+        lens = rng.randint(1, cap + 1, B)
+    pos_q = np.minimum(lens - 1, cap)
+    pos_q[0], pos_q[1 % B] = -1, min(3 * ps - 1, cap)
+    n_pages = B * P
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kp = torch.randn((n_pages + 1, ps, Hkv, D), generator=g, device="cuda")
+    vp = torch.randn((n_pages + 1, ps, Hkv, D), generator=g, device="cuda")
+    kp[n_pages], vp[n_pages] = math.nan, math.nan
+    posp = torch.full((n_pages + 1, ps), -1, dtype=torch.int32)
+    posp[n_pages] = torch.arange(ps, dtype=torch.int32)
+    table = torch.full((B, P), n_pages, dtype=torch.int32)
+    free = rng.permutation(n_pages).tolist()
+    for b, pq in enumerate(pos_q.tolist()):
+        for lp in range(min(P, max(pq, 0) // ps + 2)):
+            page = free.pop()
+            table[b, lp] = page
+            t = lp * ps + torch.arange(ps)
+            posp[page] = torch.where(t <= pq, t, -1).int()
+    q = torch.randn((B, 1, Hkv * G, D), generator=g, device="cuda")
+    return (q.to(qdt), kp.to(kvdt), vp.to(kvdt), posp.cuda(), table.cuda(),
+            torch.tensor(pos_q, dtype=torch.int32, device="cuda")[:, None],
+            dict(window=window))
+
+
+def _paged_tol(case):
+    """bf16 anywhere: 2e-2 (the gather path rounds P to bf16 before P V,
+    the kernel keeps f32 to the end); f32 throughout: 2e-5."""
+    return 2e-2 if BF16 in case[-2:] else 2e-5
+
+
+#: beside ``_paged_tol``, by q's dtype: ||out - ref|| / ||ref|| over the
+#: active rows against the gather path in f32 over the same pools.  At
+#: serve.long's ~2,200 live keys an output is of order 0.035, where the
+#: absolute term alone would pass a kernel that drops the query's own key
+#: or sums P V in bf16; limits as chip_smoke.py's PAGED_REL_TOL, set from
+#: sound readings and those controls (PERF.md)
+PAGED_REL_TOL = {BF16: 5e-3, F32: 1e-5}
+
+
+def _assert_paged_close(out, args, kw, tol):
+    """The active rows of ``out`` against the gather path: elementwise to
+    ``tol`` in q's dtype, and to PAGED_REL_TOL over the whole in f32."""
+    q, kp, vp, posp, table, pos_q = args
+    active = pos_q[:, 0] >= 0
+    ref = ops.paged_attention_gather(*args, **kw)
+    torch.testing.assert_close(out[active].float(), ref[active].float(),
+                               rtol=tol, atol=tol)
+    ref32 = ops.paged_attention_gather(q.float(), kp.float(), vp.float(),
+                                       posp, table, pos_q, **kw)[active]
+    rel = float((out[active].float() - ref32).norm() / ref32.norm())
+    assert rel <= PAGED_REL_TOL[q.dtype], rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_GPU_CASES,
+                         ids=lambda c: "x".join(map(str, c[:7])) + "-"
+                         + "-".join(str(t).split(".")[-1] for t in c[7:]))
+def test_paged_kernel_matches_plain_on_gpu(case):
+    """The kernel against the gather path (``ops.paged_attention_gather``,
+    the port's path before the kernel) on the active rows, at the stated
+    tolerances; zeros on the inactive row; one launch a call; the trash
+    page's NaN never reaches an output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    *args, kw = _paged_gpu_inputs(case)
+    before = pa.launches
+    out = ops.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    active = args[-1][:, 0] >= 0
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert bool(torch.isfinite(out).all())
+    _assert_paged_close(out, args, kw, _paged_tol(case))
+    assert not bool(out[~active].any())
+
+
+@pytest.mark.gpu
+def test_paged_kernel_split_is_bitwise_stable_and_matches_twin():
+    """At granite's serve.long shape (16 ranges): two calls give the same
+    bits (the merge runs in range order, no atomics), and the kernel
+    matches its plain twin, ``paged_attention_split_plain``, run on the CPU
+    copy of the inputs (f32 pools: 2e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    case = (64, 8, 2, 64, 256, 16, 0, F32, F32)
+    *args, kw = _paged_gpu_inputs(case, seed=3)
+    assert pa.page_split(64, 8, 2, 256, 16) == (16, 16)
+    first = ops.paged_attention(*args, **kw)
+    second = ops.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    twin = pa.paged_attention_split_plain(*(t.cpu() for t in args), **kw)
+    torch.testing.assert_close(first.cpu(), twin, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_replays_in_a_cuda_graph():
+    """The kernel captured in a CUDA graph at granite's serve.short shape,
+    then replayed after the block table, the query positions, q and the
+    pools change in place (slots freed and pages recycled, as the engine
+    does): each replay equals an eager call on the same tensors, bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    case = (64, 8, 2, 64, 64, 16, 0, BF16, BF16)
+    *args, kw = _paged_gpu_inputs(case, seed=4)
+    q, kp, vp, posp, table, pos_q = args
+    ops.paged_attention(*args, **kw)  # load the library before capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ops.paged_attention(*args, **kw)
+    for seed in (5, 6):
+        *new, _ = _paged_gpu_inputs(case, seed=seed)
+        for t, n in zip(args, new):
+            t.copy_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.paged_attention(*args, **kw))
+
+
+@pytest.mark.gpu
+def test_paged_kernel_new_shape_adds_no_stream_sync():
+    """A shape's first call (a new range split, scratch from torch.empty)
+    launches without synchronising the stream, and still agrees (2e-2 and
+    PAGED_REL_TOL)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    case = (7, 2, 2, 64, 96, 16, 0, BF16, BF16)
+    *args, kw = _paged_gpu_inputs(case, seed=7)
+    ops.paged_attention(*_paged_gpu_inputs(PAGED_GPU_CASES[6])[:-1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ops.paged_attention(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_paged_close(out, args, kw, 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "gemma-2b",
+                                  "h2o-danube-1.8b"])
+def test_paged_engine_counts_attention_launches(arch):
+    """Over a served trace (nine requests on three slots, the decode block
+    replayed as a CUDA graph) the engine's ``paged_attention_launches`` is
+    the model's full-attention layers x its decode ticks: every tick of
+    every block, eager, captured or replayed, runs the kernel once a layer
+    (none for h2o-danube-1.8b, whose sliding-window layers keep rings)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph is captured only there")
+    import numpy as np
+
+    from repro_torch.launch.serve import Request
+
+    cfg = smoke_config(arch)
+    model = LanguageModel(cfg, device="cuda")
+    eng = _recording_engine(model, model.init(0), eager=False)
+    rng = np.random.RandomState(2)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
+                                              rng.randint(5, 60)).tolist(),
+                    max_new=int(rng.randint(4, 24)), arrival=4 * i)
+            for i in range(9)]
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    assert eng._graph is not None and stats["decode_ticks"] > 16
+    layers = sum(t == "attn" for t in cfg.layer_types())
+    assert stats["paged_attention_launches"] == layers * stats["decode_ticks"]
